@@ -27,6 +27,14 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the PyTorch port's kernel tests); skips "
+        "without one",
+    )
+
+
 @pytest.fixture()
 def rng():
     # function-scoped on purpose: a shared session generator couples every
