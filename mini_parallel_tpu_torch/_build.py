@@ -44,9 +44,10 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str, sources: tuple[str, ...]) -> Path:
-    """Where the build of ``sources`` lands: ``_build/<name>-<hash>.so``."""
+    """Where the build of ``sources`` lands: ``_build/<name>-<hash>.so``.
+    The hash covers the flags, the sources and every header in csrc/."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in (*sources, *sorted(p.name for p in CSRC.glob("*.cuh"))):
         h.update(src.encode())
         h.update((CSRC / src).read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

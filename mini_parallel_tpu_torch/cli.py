@@ -1,12 +1,17 @@
 """CLI of the PyTorch/CUDA port: the counterpart of mini_parallel_tpu/cli.py.
 
 The flag surface is the JAX package's (itself ``smith_waterman/src/main.rs:11-46``
-plus its additions). Ported: ``--full-wgs``, ``--test-wgs`` and direct
-``-1/-2`` pairs, in ``--mode kadane`` or ``sw``, with ``--allow-cpu``,
-``--env``, ``--chunk-size`` and ``--retries``. Every other mode flag is
-accepted and exits 2 with "not yet ported".
+plus its additions). Ported: ``--full-wgs``, ``--test-wgs``, direct
+``-1/-2`` pairs of any length, ``--files`` pair mode, ``--complementarity``
+and ``--long-align``, in every ``--mode`` (kadane, sw, sw-affine,
+contiguous), with ``--allow-cpu``, ``--env``, ``--chunk-size`` and
+``--retries``. ``--kmer``, ``--variant-prep``, ``--profile`` and
+``MPT_MESH_SHAPE`` are accepted and exit 2 with "not yet ported".
 
     python -m mini_parallel_tpu_torch --full-wgs --mode sw
+    python -m mini_parallel_tpu_torch --files -1 R1.fastq.gz -2 R2.fastq.gz
+    python -m mini_parallel_tpu_torch --complementarity -1 R1.fastq.gz -2 R2.fastq.gz
+    python -m mini_parallel_tpu_torch --long-align -1 a.fa -2 b.fa --mode sw-affine
 
 A CUDA device is mandatory, as the reference's GPU was (main.rs:76-79),
 unless ``--allow-cpu`` asks for the CPU explicitly.
@@ -17,16 +22,14 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 
 from mini_parallel_tpu_torch.utils import config as config_mod
 
 # mode flags of the JAX package that this package does not run yet
 _NOT_PORTED = (
-    ("files", "--files"),
     ("kmer", "--kmer"),
-    ("complementarity", "--complementarity"),
     ("variant_prep", "--variant-prep"),
-    ("long_align", "--long-align"),
     ("profile", "--profile"),
 )
 
@@ -35,12 +38,13 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="mini_parallel_tpu_torch",
         description="Sequence alignment on one CUDA GPU: the PyTorch port "
-        "of mini_parallel_tpu (--full-wgs, --test-wgs, direct pairs).",
+        "of mini_parallel_tpu (--full-wgs, --test-wgs, --files, "
+        "--complementarity, --long-align, direct pairs).",
     )
     p.add_argument("-1", "--seq1", help="first sequence (or file path with --files)")
     p.add_argument("-2", "--seq2", help="second sequence (or file path with --files)")
     p.add_argument("-f", "--files", action="store_true",
-                   help="treat --seq1/--seq2 as FASTQ file paths (not yet ported)")
+                   help="treat --seq1/--seq2 as FASTQ file paths")
     p.add_argument("-c", "--chunk-size", type=int, default=None,
                    help="reads per chunk (overrides GPU_CHUNK_SIZE_READS)")
     p.add_argument("-g", "--gpu", action="store_true",
@@ -54,8 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mode", choices=("kadane", "sw", "sw-affine", "contiguous"),
                    default=None,
                    help="scoring mode: kadane=reference parity (default), "
-                   "sw=true Smith-Waterman; sw-affine and contiguous are not "
-                   "yet ported")
+                   "sw=true Smith-Waterman, sw-affine=affine gaps (Gotoh), "
+                   "contiguous=exact contiguous Kadane")
     p.add_argument("--kmer", metavar="FASTQ[,FASTQ...]",
                    help="count k-mers (not yet ported)")
     p.add_argument("-k", "--kmer-size", type=int, default=21,
@@ -69,7 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kmer-checkpoint-every", type=int, default=200,
                    metavar="N", help="chunks between --kmer-checkpoint snapshots")
     p.add_argument("--complementarity", action="store_true",
-                   help="mate-pair complementarity (not yet ported)")
+                   help="direct+complementary mate-pair analysis of -1/-2 "
+                   "lane files (%% non-complementary metric)")
     p.add_argument("--variant-prep", metavar="FASTQ[,FASTQ...]",
                    help="variant-call prep (not yet ported)")
     p.add_argument("--reference", metavar="FASTA",
@@ -97,7 +102,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prep-checkpoint-every", type=int, default=200,
                    metavar="N", help="chunks between --prep-checkpoint snapshots")
     p.add_argument("--long-align", action="store_true",
-                   help="exact SW of two long sequences (not yet ported)")
+                   help="exact SW of two LONG sequences (-1/-2 are FASTA "
+                   "paths; --mode sw or sw-affine): the column-strip engine")
     p.add_argument("--retries", type=int, default=0, metavar="N",
                    help="--full-wgs: retry a failed file up to N times, "
                    "resuming from its last chunk checkpoint (0 = abort on "
@@ -123,7 +129,7 @@ def main(argv: list[str] | None = None, echo=print) -> int:
     if args.chunk_size is not None:
         env["GPU_CHUNK_SIZE_READS"] = str(args.chunk_size)
     cfg = config_mod.get_config(
-        env, require_chunk_size=args.full_wgs or args.test_wgs)
+        env, require_chunk_size=args.full_wgs or args.test_wgs or args.files)
     if args.mode:
         cfg.mode = args.mode
 
@@ -143,7 +149,17 @@ def main(argv: list[str] | None = None, echo=print) -> int:
         return 0 if ok else 1
 
     if not (args.full_wgs or (args.seq1 and args.seq2)):
-        build_parser().print_help()
+        if args.complementarity:
+            echo("ERROR: --complementarity requires -1 R1.fastq.gz -2 R2.fastq.gz")
+        elif args.long_align:
+            echo("ERROR: --long-align requires -1 a.fasta -2 b.fasta")
+        elif args.files:
+            echo("ERROR: --files requires --seq1 and --seq2 file paths")
+        else:
+            build_parser().print_help()
+        return 2
+    if args.long_align and args.mode and args.mode not in ("sw", "sw-affine"):
+        echo("ERROR: --long-align supports --mode sw or sw-affine")
         return 2
 
     from mini_parallel_tpu_torch.device import NoAcceleratorError, require_cuda
@@ -169,13 +185,75 @@ def main(argv: list[str] | None = None, echo=print) -> int:
                                            retries=args.retries)
         echo(f"Processed {len(results)} files")
         return 0
-
-    try:  # main.rs:183-191
-        score = engine.score_strings(args.seq1, args.seq2)
-    except NotImplementedError as e:
-        echo(f"ERROR: {e}")
-        return 2
+    if args.complementarity:
+        return _complementarity(args, cfg, device, echo)
+    if args.long_align:
+        return _long_align(args, cfg, device, echo)
+    if args.files:  # main.rs:170-182
+        try:
+            res = engine.pair_align_files(args.seq1, args.seq2, progress=echo)
+        except (OSError, IOError) as e:
+            echo(f"ERROR: {e}")
+            return 1
+        echo(f"Loaded {res.bases1} bases from {args.seq1}")
+        echo(f"Loaded {res.bases2} bases from {args.seq2}")
+        echo(f"Alignment score: {res.score}")
+        echo(f"Processing time: {res.processing_time_ms:.2f} ms on {res.device}")
+        return 0
+    score = engine.score_strings(args.seq1, args.seq2)  # main.rs:183-191
     echo(f"Alignment score: {score}")
+    return 0
+
+
+def _complementarity(args, cfg, device, echo) -> int:
+    from mini_parallel_tpu_torch.models.complementarity import (
+        ComplementarityEngine,
+    )
+
+    ceng = ComplementarityEngine(cfg, mode=cfg.mode if args.mode else "sw",
+                                 device=device)
+    try:
+        res = ceng.analyze_lane_pair(args.seq1, args.seq2, progress=echo)
+    except (OSError, IOError) as e:
+        echo(f"ERROR: {e}")
+        return 1
+    echo(f"Pairs: {res.pairs}")
+    echo(f"Direct score sum: {res.direct_score_sum}")
+    echo(f"Complementary score sum: {res.comp_score_sum}")
+    echo(f"Perfectly complementary: {res.perfect_pairs}")
+    echo(f"Non-complementary: {res.pct_non_complementary:.2f} %")
+    echo(f"Time: {res.seconds:.2f} s")
+    return 0
+
+
+def _long_align(args, cfg, device, echo) -> int:
+    from mini_parallel_tpu_torch.io import fasta
+    from mini_parallel_tpu_torch.ops import sw_long
+
+    # cfg.mode already reflects --mode or the env's MPT_MODE; modes without
+    # a long-pair engine (kadane/contiguous defaults) fall back to true SW
+    mode = cfg.mode if cfg.mode in ("sw", "sw-affine") else "sw"
+    try:
+        sa = fasta.read_first_sequence(args.seq1)
+        sb = fasta.read_first_sequence(args.seq2)
+    except (OSError, IOError, ValueError) as e:
+        echo(f"ERROR: {e}")
+        return 1
+    echo(f"Sequences: {len(sa)} x {len(sb)} bases "
+         f"({len(sa) * len(sb) / 1e9:.2f} Gcells, {mode})")
+    t0 = time.perf_counter()
+    # rows run along the longer side (fewer, fuller strips)
+    a, b = (sa, sb) if len(sa) >= len(sb) else (sb, sa)
+    if mode == "sw":
+        score = sw_long.sw_score_long(a, b, device, progress=echo)
+    else:
+        score = sw_long.sw_affine_score_long(
+            a, b, device, gap_open=cfg.gap_open, gap_extend=cfg.gap_extend,
+            progress=echo)
+    dt = time.perf_counter() - t0
+    echo(f"Alignment score: {score}")
+    echo(f"Processing time: {dt:.2f} s "
+         f"({len(sa) * len(sb) / max(dt, 1e-9) / 1e9:.1f} GCUPS)")
     return 0
 
 

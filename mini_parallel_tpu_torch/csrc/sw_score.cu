@@ -36,26 +36,17 @@
 //     device memory that the caller allocates, and is the next stripe's top.
 // Simple first: no 16-bit packing (__vimax3_s16x2_relu), no tensor cores.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "warp_pair.cuh"
 
 namespace {
 
-constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kWarpsPerBlock = 4;
-constexpr int kMaxRowsPerLane = 8;
+using namespace warp_pair;
+
 constexpr int kGap = -2;
 // diagonal term in G form: H_diag + s = G_diag + (s - kGap)
 constexpr int kDiagMatch = 2 - kGap;
 constexpr int kDiagMismatch = -1 - kGap;
 constexpr int kGZero = 0 + kGap;  // G of a cell with H = 0
-constexpr int kNoA = -1;          // row past M: equals no byte
-constexpr int kNoB = -2;          // column outside [0, N): equals no byte
-
-int rows_per_lane(int M) {
-  const int r = (M + 31) / 32;
-  return r < kMaxRowsPerLane ? r : kMaxRowsPerLane;
-}
 
 template <int R>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
@@ -125,24 +116,13 @@ sw_score_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
   if (lane == 0) out[pair] = best;
 }
 
-template <int R>
-void launch(const uint8_t* a, const uint8_t* b, int32_t* out, int32_t* bound,
-            long long B, int M, int N, cudaStream_t stream) {
-  const unsigned blocks =
-      (unsigned)((B + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  sw_score_kernel<R><<<blocks, 32 * kWarpsPerBlock, 0, stream>>>(
-      a, b, out, bound, B, M, N);
-}
-
 }  // namespace
 
 extern "C" {
 
 // int32 values of scratch each pair needs: N when M spans more than one
 // stripe, else 0 (then `scratch` may be null).
-int sw_score_scratch_per_pair(int M, int N) {
-  return M > 32 * rows_per_lane(M) ? N : 0;
-}
+int sw_score_scratch_per_pair(int M, int N) { return striped(M) ? N : 0; }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 int sw_score_launch(const void* a, const void* b, void* out, void* scratch,
@@ -155,16 +135,11 @@ int sw_score_launch(const void* a, const void* b, void* out, void* scratch,
   int32_t* po = static_cast<int32_t*>(out);
   int32_t* ps = static_cast<int32_t*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (rows_per_lane(M)) {
-    case 1: launch<1>(pa, pb, po, ps, B, M, N, s); break;
-    case 2: launch<2>(pa, pb, po, ps, B, M, N, s); break;
-    case 3: launch<3>(pa, pb, po, ps, B, M, N, s); break;
-    case 4: launch<4>(pa, pb, po, ps, B, M, N, s); break;
-    case 5: launch<5>(pa, pb, po, ps, B, M, N, s); break;
-    case 6: launch<6>(pa, pb, po, ps, B, M, N, s); break;
-    case 7: launch<7>(pa, pb, po, ps, B, M, N, s); break;
-    default: launch<8>(pa, pb, po, ps, B, M, N, s); break;
-  }
+  dispatch_rows(M, [&](auto rows) {
+    sw_score_kernel<decltype(rows)::value>
+        <<<blocks_for(B), 32 * kWarpsPerBlock, 0, s>>>(pa, pb, po, ps, B, M,
+                                                       N);
+  });
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
 """Alignment engine: the counterpart of mini_parallel_tpu/models/alignment.py
-for the ``kadane`` and ``sw`` modes on one device.
+on one device.
 
 Maps the reference orchestration (`smith_waterman/src/aligner.rs`) onto
 batched device calls: chunks are staged into padded uint8 buckets, scores
@@ -10,15 +10,19 @@ Scoring modes:
 - ``kadane`` (default): bit-parity with the reference's live kernel
   (ops/kadane.py). Self-alignment chunks score 2 (>= 1000 bases) or 0.
 - ``sw``: true Smith-Waterman; each read is scored against itself through
-  the CUDA kernel on the card (ops/sw_cuda.py), 2 * len per read.
+  the CUDA kernel on the card (ops/sw_cuda.py), 2 * len per read; pair
+  mode aligns mate reads r1[i] x r2[i].
+- ``sw-affine``: the same with affine gaps (``cfg.gap_open``,
+  ``cfg.gap_extend``), through the affine CUDA kernel.
+- ``contiguous``: contiguous Kadane, exact via the segment monoid.
 
-Not yet ported (raise NotImplementedError): ``sw-affine`` and
-``contiguous``, sw pairs longer than LONG_PAIR_THRESHOLD (the JAX package's
-sw_long route), device meshes, and pair-file mode.
+Direct pairs longer than LONG_PAIR_THRESHOLD take the column-strip engine
+(ops/sw_long.py). Device meshes are not ported yet (NotImplementedError).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 
@@ -27,9 +31,12 @@ import torch
 
 from mini_parallel_tpu_torch.device import require_cuda
 from mini_parallel_tpu_torch.io import fastq
-from mini_parallel_tpu_torch.ops import encode, kadane, sw
+from mini_parallel_tpu_torch.ops import encode, kadane, sw, sw_long
 from mini_parallel_tpu_torch.ops import packed as packedmod
-from mini_parallel_tpu_torch.ops.sw_cuda import sw_score_batch_best
+from mini_parallel_tpu_torch.ops.sw_cuda import (
+    sw_affine_batch_best,
+    sw_score_batch_best,
+)
 from mini_parallel_tpu_torch.utils.config import Config
 from mini_parallel_tpu_torch.utils.system_info import get_system_info
 
@@ -40,7 +47,8 @@ MIN_SELF_CHUNK_BASES = 1000  # aligner.rs:366-368: skip chunks < 1000 bases
 # int32 accumulator at 1 << 30.
 _ACC_LIMIT = 1 << 62
 _EMPTY = np.empty(0, np.uint8)  # zero-length batch-pad row (scores 0)
-MODES = ("kadane", "sw")
+MODES = ("kadane", "sw", "sw-affine", "contiguous")
+TWO_SIDED = ("sw", "sw-affine")  # modes that align reads, not concats
 
 
 class SequenceTooLarge(ValueError):
@@ -87,19 +95,27 @@ class FileResult:
     warmup_seconds: float = 0.0
 
 
+@dataclass
+class PairResult:
+    score: int
+    processing_time_ms: float
+    device: str  # the card's name, or "cpu"
+    bases1: int = 0
+    bases2: int = 0
+
+
 class AlignmentEngine:
     """Host-side orchestrator for alignment scoring on one device."""
 
-    # Direct sw pairs above this length took the JAX package's strip
-    # engine (ops/sw_long.py), which is not ported yet.
+    # Direct sw / sw-affine pairs above this length take the column-strip
+    # engine (ops/sw_long.py): exact scores, O(M+N) memory, no launch-size
+    # cap. Read-scale pairs stay on the batched kernels at B = 1.
     LONG_PAIR_THRESHOLD = 2048
 
     def __init__(self, cfg: Config | None = None, mode: str | None = None,
                  device: torch.device | str | None = None):
         self.cfg = cfg or Config(chunk_size_reads=10_000)
         self.mode = mode or self.cfg.mode
-        if self.mode in ("sw-affine", "contiguous"):
-            raise NotImplementedError(f"mode {self.mode!r} is not yet ported")
         if self.mode not in MODES:
             raise ValueError(f"unknown mode {self.mode!r}")
         if self.cfg.mesh_shape:
@@ -118,7 +134,16 @@ class AlignmentEngine:
         """Per-pair device scores for already-unpacked operands."""
         if kind == "sw":
             return sw_score_batch_best(a, b)
+        if kind == "sw-affine":
+            return self._affine(a, b)
+        if kind == "contiguous":
+            return kadane.kadane_contiguous_batch(a, b, la, lb)
         return kadane.kadane_score_batch(a, b, la, lb)
+
+    def _affine(self, a, b) -> torch.Tensor:
+        """Affine-gap scores honouring the config's gap costs."""
+        return sw_affine_batch_best(a, b, gap_open=self.cfg.gap_open,
+                                    gap_extend=self.cfg.gap_extend)
 
     def _packed_fn(self, kind: str, shape: str):
         """Scorer over packed device operands.
@@ -129,7 +154,7 @@ class AlignmentEngine:
         def self_fn(pk, ec, ev, ln):
             a = packedmod.unpack_device(pk, ec, ev, ln, int(encode.PAD_A))
             b = (packedmod.unpack_device(pk, ec, ev, ln, int(encode.PAD_B))
-                 if kind == "sw" else a)
+                 if kind in TWO_SIDED else a)
             return self._local_scores(kind, a, b, ln, ln).sum()
 
         def pair_fn(pka, eca, eva, lna, pkb, ecb, evb, lnb):
@@ -180,16 +205,70 @@ class AlignmentEngine:
                 self._to_device(len_a), self._to_device(len_b))
         return out if defer else out.cpu().numpy()
 
+    def _score_flat_pairs(self, f1, o1, f2, o2) -> torch.Tensor:
+        """Deferred per-pair scores for two flat chunks (same device steps
+        as score_read_batch, no per-read Python objects)."""
+        m1 = int(np.diff(o1).max()) if len(o1) > 1 else 1
+        m2 = int(np.diff(o2).max()) if len(o2) > 1 else 1
+        pad = _bucket(max(m1, m2), floor=self.cfg.read_pad)
+        check_device_budget(2 * (len(o1) - 1) * pad, self.device)
+        arr_a, la = encode.pad_batch_flat(
+            f1[: int(o1[-1])], o1, pad_to=pad, pad_value=int(encode.PAD_A))
+        arr_b, lb = encode.pad_batch_flat(
+            f2[: int(o2[-1])], o2, pad_to=pad, pad_value=int(encode.PAD_B))
+        return self._score_pair_arrays(arr_a, la, arr_b, lb, pad, True)
+
+    def _concat_kind(self) -> str:
+        return "contiguous" if self.mode == "contiguous" else "kadane"
+
     def _score_concat_pair(self, concat1: bytes, concat2: bytes) -> int:
-        """Parity path for a direct pair: gpu_align(seq1, seq2)
-        (aligner.rs:392-394)."""
+        """Parity path for a direct pair or one pair-mode chunk pair:
+        gpu_align(chunk1.concat, chunk2.concat) (aligner.rs:392-394)."""
         pad = _bucket(max(len(concat1), len(concat2), 1))
         arr_a, la = encode.pad_batch([concat1], pad_to=pad, pad_value=int(encode.PAD_A))
         arr_b, lb = encode.pad_batch([concat2], pad_to=pad, pad_value=int(encode.PAD_B))
-        out = kadane.kadane_score_batch(
-            self._to_device(arr_a), self._to_device(arr_b),
-            self._to_device(la), self._to_device(lb))
+        out = self._local_scores(
+            self._concat_kind(), self._to_device(arr_a),
+            self._to_device(arr_b), self._to_device(la), self._to_device(lb))
         return int(out[0])
+
+    def _pair_batch_fn(self, kind: str):
+        """Scorer of one packed chunk1 against a packed batch of chunk2
+        concats: chunk1 is unpacked once and broadcast on the device."""
+        def fn(pk1, ec1, ev1, ln1, pk2, ec2, ev2, ln2):
+            a1 = packedmod.unpack_device(pk1, ec1, ev1, ln1, int(encode.PAD_A))
+            b = packedmod.unpack_device(pk2, ec2, ev2, ln2, int(encode.PAD_B))
+            a = a1.expand(b.shape)
+            la = ln1.expand(ln2.shape)
+            return self._local_scores(kind, a, b, la, ln2).sum()
+
+        return fn
+
+    def _score_concat_pair_group(self, concat1: bytes, concats2: list[bytes],
+                                 group: int = 8,
+                                 c1_cache: dict | None = None) -> torch.Tensor:
+        """Deferred score sum of chunk1 vs a group of chunk2 concats in ONE
+        device call (empty pad concats score 0 by min-length masking),
+        instead of the reference's launch per chunk pair
+        (aligner.rs:390-398). ``c1_cache`` (keyed by pad bucket, scoped to
+        one outer chunk) avoids re-packing and re-sending chunk1."""
+        concats2 = concats2 + [b""] * (group - len(concats2))
+        pad = _bucket(max(len(concat1), max(len(c) for c in concats2), 1))
+        check_device_budget((1 + len(concats2)) * pad, self.device)
+        if c1_cache is None or pad not in c1_cache:
+            arr1, l1 = encode.pad_batch(
+                [concat1], pad_to=pad, pad_value=int(encode.PAD_A))
+            args1 = packedmod.device_args(packedmod.pack_batch(arr1, l1),
+                                          self.device)
+            if c1_cache is not None:
+                c1_cache[pad] = args1
+        else:
+            args1 = c1_cache[pad]
+        arr2, l2 = encode.pad_batch(concats2, pad_to=pad,
+                                    pad_value=int(encode.PAD_B))
+        p2 = packedmod.pack_batch(arr2, l2)
+        return self._pair_batch_fn(self._concat_kind())(
+            *args1, *packedmod.device_args(p2, self.device))
 
     # ------------------------------------------------------------------
     # CLI-facing modes
@@ -200,13 +279,22 @@ class AlignmentEngine:
             s1 = s1.encode("ascii")
         if isinstance(s2, str):
             s2 = s2.encode("ascii")
+        long_pair = max(len(s1), len(s2)) > self.LONG_PAIR_THRESHOLD
+        # rows run along the longer side (fewer, fuller strips)
+        a, b = (s1, s2) if len(s1) >= len(s2) else (s2, s1)
         if self.mode == "sw":
-            if max(len(s1), len(s2)) > self.LONG_PAIR_THRESHOLD:
-                raise NotImplementedError(
-                    f"sw pairs longer than {self.LONG_PAIR_THRESHOLD} bases "
-                    "(the long-pair strip engine) are not yet ported")
+            if long_pair:
+                return sw_long.sw_score_long(a, b, self.device)
             return sw.sw_score_pair(s1, s2, self.device)
+        if self.mode == "sw-affine":
+            if long_pair:
+                return sw_long.sw_affine_score_long(
+                    a, b, self.device, gap_open=self.cfg.gap_open,
+                    gap_extend=self.cfg.gap_extend)
+            return int(self._affine(*sw.pair_tensors(s1, s2, self.device))[0])
         n = min(len(s1), len(s2))
+        if self.mode == "contiguous":
+            return self._score_concat_pair(s1, s2) if n else 0
         if not kadane.degenerate_regime(n):
             # exact strided emulation for absurdly long inputs (host)
             return kadane.reference_align_score(s1, s2)
@@ -285,11 +373,12 @@ class AlignmentEngine:
             check_device_budget(len(batch) * pad, self.device)
             arr, lens = encode.pad_batch(
                 batch, pad_to=pad, pad_value=int(encode.PAD_A))
-            key = ("concat", "kadane", pad, len(batch))
+            kind = self._concat_kind()
+            key = ("concat", kind, pad, len(batch))
             if self.cfg.packed_transfer and pad % 4 == 0:
-                return warm(key, self._packed_self_sum("kadane", arr, lens))
+                return warm(key, self._packed_self_sum(kind, arr, lens))
             a, ln = self._to_device(arr), self._to_device(lens)
-            return warm(key, kadane.kadane_score_batch(a, a, ln, ln).sum())
+            return warm(key, self._local_scores(kind, a, a, ln, ln).sum())
 
         def skip_failed(e: Exception):
             # reference semantics (aligner.rs:284-287): log the per-chunk
@@ -334,7 +423,7 @@ class AlignmentEngine:
                 res.total_reads += n_reads
                 res.chunks += 1
                 res.total_bases += int(flat.size)
-                if self.mode == "sw":
+                if self.mode in TWO_SIDED:
                     self._self_align_reads(flat, offs, n_reads, enqueue, warm,
                                            skip_failed)
                 elif flat.size >= MIN_SELF_CHUNK_BASES:  # aligner.rs:366-368
@@ -352,7 +441,8 @@ class AlignmentEngine:
 
     def _self_align_reads(self, flat, offs, n_reads, enqueue, warm,
                           skip_failed) -> None:
-        """sw mode: queue one chunk's reads, each against itself."""
+        """sw / sw-affine mode: queue one chunk's reads, each against
+        itself."""
         pad = _bucket(int(np.diff(offs).max()) if n_reads else 1,
                       floor=self.cfg.read_pad)
         # bucket the ROW count too, so the final partial chunk reuses the
@@ -373,12 +463,65 @@ class AlignmentEngine:
                 arr_b = np.where(
                     np.arange(pad, dtype=np.int32)[None, :] < la[:, None],
                     arr_a, encode.PAD_B)
-                scores = sw_score_batch_best(self._to_device(arr_a),
-                                             self._to_device(arr_b))
+                scores = self._local_scores(
+                    self.mode, self._to_device(arr_a), self._to_device(arr_b),
+                    None, None)
                 enqueue(warm(key, scores.sum()), bound)
         except Exception as e:
             skip_failed(e)
 
-    def pair_align_files(self, file1: str, file2: str, progress=None):
-        """--files pair mode (aligner.rs:376-407)."""
-        raise NotImplementedError("pair-file mode (--files) is not yet ported")
+    def pair_align_files(self, file1: str, file2: str,
+                         progress=None) -> PairResult:
+        """--files pair mode (aligner.rs:376-407).
+
+        kadane/contiguous: the reference's exact cross-product semantics —
+        every chunk of file1 scored against every chunk of file2 (file2
+        re-streamed per outer chunk, aligner.rs:390-398).
+        sw/sw-affine: mate-pair alignment — reads zipped r1[i] x r2[i] and
+        summed, stopping at the shorter file; the cross product is
+        meaningless under true DP and O(C1*C2*L^2).
+        """
+        t0 = time.perf_counter()
+        bases1 = fastq.count_bases(file1, self.cfg.chunk_size_reads)
+        bases2 = fastq.count_bases(file2, self.cfg.chunk_size_reads)
+        deferred: list[torch.Tensor] = []
+        total = 0
+        if self.mode in TWO_SIDED:
+            with contextlib.ExitStack() as stack:
+                it1, it2 = (stack.enter_context(fastq.prefetch(
+                    fastq.iter_flat_chunks(f, self.cfg.chunk_size_reads)))
+                    for f in (file1, file2))
+                for (f1, o1), (f2, o2) in zip(it1, it2):
+                    n = min(len(o1), len(o2)) - 1
+                    if n:
+                        deferred.append(self._score_flat_pairs(
+                            f1, o1[: n + 1], f2, o2[: n + 1]).sum())
+        elif self.cfg.packed_transfer:
+            # the same cross product, chunk2s scored in groups of 8 per
+            # device call with a single deferred drain
+            for c1 in fastq.iter_read_chunks(file1, self.cfg.chunk_size_reads):
+                concat1 = b"".join(c1)
+                c1_cache: dict = {}
+                group: list[bytes] = []
+                for c2 in fastq.iter_read_chunks(file2,
+                                                 self.cfg.chunk_size_reads):
+                    group.append(b"".join(c2))
+                    if len(group) == 8:
+                        deferred.append(self._score_concat_pair_group(
+                            concat1, group, c1_cache=c1_cache))
+                        group = []
+                if group:
+                    deferred.append(self._score_concat_pair_group(
+                        concat1, group, c1_cache=c1_cache))
+        else:
+            for c1 in fastq.iter_read_chunks(file1, self.cfg.chunk_size_reads):
+                concat1 = b"".join(c1)
+                for c2 in fastq.iter_read_chunks(file2,
+                                                 self.cfg.chunk_size_reads):
+                    total += self._score_concat_pair(concat1, b"".join(c2))
+        if deferred:  # one read of the device total
+            total += int(torch.stack(deferred).to(torch.int64).sum())
+        ms = (time.perf_counter() - t0) * 1000
+        return PairResult(score=total, processing_time_ms=ms,
+                          device=get_system_info(self.device).device_kind,
+                          bases1=bases1, bases2=bases2)

@@ -1,19 +1,88 @@
-"""DNA sequence encoding for device tensors: the host (NumPy) part of
-mini_parallel_tpu/ops/encode.py.
+"""DNA sequence encoding: the counterpart of mini_parallel_tpu/ops/encode.py.
 
 Reads stay raw uint8 ASCII, as the reference ships them
 (`smith_waterman/src/aligner.rs:411-412`). The two sides of an alignment
 are padded with two *different* sentinels, both different from every real
 base, so padded positions always mismatch (see ops/sw.py for why that
 cannot change a local-alignment maximum).
+
+Host side (NumPy): padding. Tensor side (torch, on the tensor's device):
+the code alphabet and the complement/reverse-complement ops.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 PAD_A = np.uint8(0xFE)
 PAD_B = np.uint8(0xFF)
+
+# Code alphabet (A=0 C=1 G=2 T=3, N/other=4) and its code-space pads.
+CODE_A, CODE_C, CODE_G, CODE_T, CODE_N = 0, 1, 2, 3, 4
+CODE_PAD_A = np.uint8(5)
+CODE_PAD_B = np.uint8(6)
+
+_ASCII_TO_CODE = np.full(256, CODE_N, dtype=np.uint8)
+for _ch, _code in (("A", CODE_A), ("C", CODE_C), ("G", CODE_G), ("T", CODE_T)):
+    _ASCII_TO_CODE[ord(_ch)] = _code
+    _ASCII_TO_CODE[ord(_ch.lower())] = _code
+_ASCII_TO_CODE[PAD_A] = CODE_PAD_A
+_ASCII_TO_CODE[PAD_B] = CODE_PAD_B
+
+# DNA complement on ASCII bytes (A<->T, C<->G, case-preserving; everything
+# else, N included, maps to itself).
+_ASCII_COMPLEMENT = np.arange(256, dtype=np.uint8)
+for _x, _y in (("A", "T"), ("C", "G"), ("a", "t"), ("c", "g")):
+    _ASCII_COMPLEMENT[ord(_x)] = ord(_y)
+    _ASCII_COMPLEMENT[ord(_y)] = ord(_x)
+
+# Complement in code space: 3 - code for ACGT; N and pads map to themselves.
+_CODE_COMPLEMENT = np.array([3, 2, 1, 0, CODE_N, CODE_PAD_A, CODE_PAD_B],
+                            dtype=np.uint8)
+
+
+def _lookup(table: np.ndarray, x: torch.Tensor) -> torch.Tensor:
+    return torch.from_numpy(table).to(x.device)[x.long()]
+
+
+def ascii_to_code(ascii_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 ASCII -> dense code (A=0 C=1 G=2 T=3, N=4, pads=5/6)."""
+    return _lookup(_ASCII_TO_CODE, ascii_u8)
+
+
+def complement_ascii(ascii_u8: torch.Tensor) -> torch.Tensor:
+    """Base-complement ASCII bytes (A<->T, C<->G), elementwise."""
+    return _lookup(_ASCII_COMPLEMENT, ascii_u8)
+
+
+def complement_code(codes: torch.Tensor) -> torch.Tensor:
+    """Base-complement in code space."""
+    return _lookup(_CODE_COMPLEMENT, codes)
+
+
+def reverse_complement_ascii(ascii_u8: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Reverse-complement along ``axis`` (pads travel to the front)."""
+    return complement_ascii(ascii_u8).flip(axis)
+
+
+def revcomp_padded(reads: torch.Tensor, lengths: torch.Tensor,
+                   pad_value: int) -> torch.Tensor:
+    """Reverse-complement each row's valid prefix of a padded (B, L) batch.
+
+    Pads stay pads and stay at the END of each row: complement the valid
+    bytes, flip the whole row, then roll each row left by its pad width.
+    Equivalent to host-side ``r.translate(comp)[::-1]`` re-padded.
+    """
+    L = reads.shape[1]
+    if L == 0:
+        return reads.clone()
+    rc = torch.where(reads == pad_value, reads, complement_ascii(reads))
+    flipped = rc.flip(1)
+    # per-row roll by (len - L) mod L: out[i] = flipped[(i - shift) mod L]
+    shift = (lengths.to(torch.int64) - L) % L
+    pos = torch.arange(L, dtype=torch.int64, device=reads.device)[None, :]
+    return flipped.gather(1, (pos - shift[:, None]) % L)
 
 
 def seq_to_bytes(seq: str | bytes) -> np.ndarray:

@@ -13,9 +13,13 @@ sees at most one position, so the score degenerates to::
   strided dispatch (any length), the golden for parity tests.
 - :func:`kadane_score_batch` — the batched device path for the degenerate
   regime, in torch. It is elementwise work plus one reduction; no kernel.
+- :func:`kadane_contiguous_batch` — ``contiguous`` mode: the true
+  contiguous Kadane score through the segment monoid, in torch ops.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -99,3 +103,70 @@ def kadane_score_batch(seq_a: torch.Tensor, seq_b: torch.Tensor,
                        device=seq_a.device)[None, :]
     hit = (seq_a == seq_b) & (pos < n)
     return hit.any(dim=1).to(torch.int32) * MATCH_SCORE
+
+
+# ---------------------------------------------------------------------------
+# Contiguous Kadane (the intended algorithm) as an associative monoid: the
+# segment summaries combine exactly, so a sequence split anywhere (within a
+# device, or across devices) merges to the same score.
+# ---------------------------------------------------------------------------
+
+
+class KadaneSummary(NamedTuple):
+    """Segment summary for max-subarray: the classic 4-tuple monoid."""
+
+    total: torch.Tensor  # sum of segment
+    best: torch.Tensor  # best subarray sum within segment (>= 0 here)
+    prefix: torch.Tensor  # best prefix sum (>= 0: the empty prefix)
+    suffix: torch.Tensor  # best suffix sum (>= 0: the empty suffix)
+
+
+def kadane_combine(l: KadaneSummary, r: KadaneSummary) -> KadaneSummary:
+    """Associative merge of two adjacent segment summaries."""
+    return KadaneSummary(
+        total=l.total + r.total,
+        best=torch.maximum(torch.maximum(l.best, r.best), l.suffix + r.prefix),
+        prefix=torch.maximum(l.prefix, l.total + r.prefix),
+        suffix=torch.maximum(r.suffix, r.total + l.suffix),
+    )
+
+
+def kadane_summary(scores: torch.Tensor, valid: torch.Tensor) -> KadaneSummary:
+    """Summarize a (..., L) score segment; invalid positions contribute 0.
+
+    The JAX package's two sequential scans become cumulative ops over the
+    prefix sums P (P[-1] = 0): the best run ending at k is
+    P[k] - min(0, min_{m<=k} P[m]), the best prefix is max(0, max P), and
+    the best suffix is total - min(0, min_{m<L-1} P[m]). Every value is an
+    exact integer; sums run in int64 and return as int32.
+    """
+    s = torch.where(valid, scores, 0).to(torch.int64)
+    L = s.shape[-1]
+    zeros = s.new_zeros(s.shape[:-1])
+    if L == 0:
+        z = zeros.to(torch.int32)
+        return KadaneSummary(total=z, best=z, prefix=z, suffix=z)
+    p = torch.cumsum(s, dim=-1)
+    total = p[..., -1]
+    low = torch.clamp_max(torch.cummin(p, dim=-1).values, 0)
+    best = (p - low).amax(dim=-1)
+    prefix = torch.clamp_min(p.amax(dim=-1), 0)
+    before_last = torch.clamp_max(
+        p[..., :-1].amin(dim=-1) if L > 1 else zeros, 0)
+    suffix = torch.clamp_min(total - before_last, 0)
+    return KadaneSummary(*(x.to(torch.int32)
+                           for x in (total, best, prefix, suffix)))
+
+
+def kadane_contiguous_batch(seq_a: torch.Tensor, seq_b: torch.Tensor,
+                            len_a: torch.Tensor, len_b: torch.Tensor
+                            ) -> torch.Tensor:
+    """True contiguous Kadane max-run score over position-wise +2/-1,
+    batched: the score a *single* work item scanning the whole sequence
+    would produce (smith_waterman.cl:49, before the striding scatters it).
+    Returns (B,) int32."""
+    n = torch.minimum(len_a, len_b)[:, None]
+    pos = torch.arange(seq_a.shape[1], dtype=torch.int32,
+                       device=seq_a.device)[None, :]
+    scores = torch.where(seq_a == seq_b, MATCH_SCORE, MISMATCH_PENALTY)
+    return kadane_summary(scores, pos < n).best

@@ -1,5 +1,5 @@
 """True Smith-Waterman local alignment: the counterpart of
-mini_parallel_tpu/ops/sw.py (linear gaps).
+mini_parallel_tpu/ops/sw.py (linear and affine gaps).
 
     H[i,j] = max(0, H[i-1,j-1] + s(a_i, b_j), H[i-1,j] + GAP, H[i,j-1] + GAP)
     score  = max_{i,j} H[i,j]
@@ -15,6 +15,9 @@ Layers:
   - :func:`sw_score_batch` — the plain PyTorch version: an anti-diagonal
     loop over (B, M) int32 tensors. CPU tensors run it; the CUDA kernel
     (ops/sw_cuda.py) is held against it on the card.
+  - :func:`sw_affine_numpy` / :func:`sw_affine_batch` — the same two
+    layers for affine gaps (Gotoh); the affine CUDA kernel is held
+    against :func:`sw_affine_batch`.
 """
 
 from __future__ import annotations
@@ -99,7 +102,100 @@ def sw_score_pair(a: str | bytes, b: str | bytes,
     """Single-pair SW score through the batched path on ``device``."""
     from mini_parallel_tpu_torch.ops.sw_cuda import sw_score_batch_best
 
+    return int(sw_score_batch_best(*pair_tensors(a, b, device))[0])
+
+
+def pair_tensors(a: str | bytes, b: str | bytes,
+                 device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """One pair as a B = 1 batch on ``device``: a PAD_A-, b PAD_B-padded."""
     arr_a, _ = pad_batch([a], pad_value=int(PAD_A))
     arr_b, _ = pad_batch([b], pad_value=int(PAD_B))
-    return int(sw_score_batch_best(torch.from_numpy(arr_a).to(device),
-                                   torch.from_numpy(arr_b).to(device))[0])
+    return (torch.from_numpy(arr_a).to(device),
+            torch.from_numpy(arr_b).to(device))
+
+
+# ---------------------------------------------------------------------------
+# Affine-gap local alignment (Gotoh). A gap of length L costs
+# gap_open + L * gap_extend; with gap_open=0, gap_extend=GAP_PENALTY this
+# reduces exactly to the linear-gap DP above.
+# ---------------------------------------------------------------------------
+
+GAP_OPEN = -2
+GAP_EXTEND = -1
+# Sentinel of an empty gap state. H >= 0 everywhere, so max(NEG, H + open)
+# discards it at the first step and no sum ever builds on it.
+NEG = -(2**24)
+
+
+def sw_affine_numpy(a, b, match=MATCH_SCORE, mismatch=MISMATCH_PENALTY,
+                    gap_open=GAP_OPEN, gap_extend=GAP_EXTEND) -> int:
+    """Golden Gotoh DP (host-only, tests)."""
+    if isinstance(a, str):
+        a = a.encode("ascii")
+    if isinstance(b, str):
+        b = b.encode("ascii")
+    a = np.frombuffer(bytes(a), dtype=np.uint8)
+    b = np.frombuffer(bytes(b), dtype=np.uint8)
+    m, n = len(a), len(b)
+    neg = -(10**9)
+    H = np.zeros((m + 1, n + 1), dtype=np.int64)
+    E = np.full((m + 1, n + 1), neg, dtype=np.int64)  # gap in a (along j)
+    F = np.full((m + 1, n + 1), neg, dtype=np.int64)  # gap in b (along i)
+    best = 0
+    for i in range(1, m + 1):
+        for j in range(1, n + 1):
+            E[i, j] = max(E[i, j - 1], H[i, j - 1] + gap_open) + gap_extend
+            F[i, j] = max(F[i - 1, j], H[i - 1, j] + gap_open) + gap_extend
+            s = match if a[i - 1] == b[j - 1] else mismatch
+            H[i, j] = max(0, H[i - 1, j - 1] + s, E[i, j], F[i, j])
+            best = max(best, H[i, j])
+    return int(best)
+
+
+def sw_affine_batch(seq_a: torch.Tensor, seq_b: torch.Tensor,
+                    gap_open: int = GAP_OPEN,
+                    gap_extend: int = GAP_EXTEND) -> torch.Tensor:
+    """Batched affine-gap SW scores via an anti-diagonal loop (the plain
+    version; same layout contract as :func:`sw_score_batch`).
+
+    Carries H of diagonals d-1 and d-2 and E, F of diagonal d-1 as (B, M)
+    int32 tensors: E[i,j] (gap along j) reads E and H of cell (i, j-1),
+    the same index on diagonal d-1; F[i,j] (gap along i) reads cell
+    (i-1, j), the shifted index. Empty gap states hold the sentinel NEG.
+    """
+    B, M = seq_a.shape
+    N = seq_b.shape[1]
+    dev = seq_a.device
+    if B == 0 or M == 0 or N == 0:
+        return torch.zeros(B, dtype=torch.int32, device=dev)
+    a = seq_a.to(torch.int32)
+    bp = torch.cat(
+        [
+            torch.full((B, M - 1), int(PAD_B), dtype=torch.int32, device=dev),
+            seq_b.to(torch.int32),
+            torch.full((B, M), int(PAD_B), dtype=torch.int32, device=dev),
+        ],
+        dim=1,
+    )
+    rev = bp.flip(1)
+    W = rev.shape[1]
+    zcol = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    ncol = torch.full((B, 1), NEG, dtype=torch.int32, device=dev)
+    h1 = torch.zeros((B, M), dtype=torch.int32, device=dev)  # H_{d-1}
+    h2 = torch.zeros((B, M), dtype=torch.int32, device=dev)  # H_{d-2}
+    e1 = torch.full((B, M), NEG, dtype=torch.int32, device=dev)  # E_{d-1}
+    f1 = torch.full((B, M), NEG, dtype=torch.int32, device=dev)  # F_{d-1}
+    best = torch.zeros((B, M), dtype=torch.int32, device=dev)
+    for d in range(M + N - 1):
+        w = rev[:, W - M - d: W - d]
+        s = (a == w).to(torch.int32) * (MATCH_SCORE - MISMATCH_PENALTY) \
+            + MISMATCH_PENALTY
+        e = torch.maximum(e1, h1 + gap_open) + gap_extend
+        f = torch.maximum(torch.cat([ncol, f1[:, :-1]], dim=1),
+                          torch.cat([zcol, h1[:, :-1]], dim=1) + gap_open) \
+            + gap_extend
+        h = torch.clamp_min(torch.cat([zcol, h2[:, :-1]], dim=1) + s, 0)
+        h = torch.maximum(h, torch.maximum(e, f))
+        best = torch.maximum(best, h)
+        h1, h2, e1, f1 = h, h1, e, f
+    return best.amax(dim=1)

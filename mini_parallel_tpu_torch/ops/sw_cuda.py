@@ -1,14 +1,17 @@
-"""Batched Smith-Waterman scores on the card: the wrapper of the
-hand-written CUDA kernel ``csrc/sw_score.cu`` and the router. The
-counterpart of mini_parallel_tpu/ops/sw_pallas.py for its main-path
-kernels (``sw_score_batch_pallas`` and ``sw_score_batch_chained``).
+"""Batched Smith-Waterman scores on the card: the wrappers of the
+hand-written CUDA kernels ``csrc/sw_score.cu`` (linear gaps) and
+``csrc/sw_affine_score.cu`` (affine gaps), and their routers. The
+counterpart of mini_parallel_tpu/ops/sw_pallas.py for its batched score
+kernels (``sw_score_batch_pallas``/``sw_score_batch_chained`` and
+``sw_affine_batch_pallas``/``sw_affine_batch_chained``).
 
-- :func:`sw_score_batch_cuda` launches the kernel on CUDA tensors and
-  raises on anything the kernel does not take. It counts its launches in
-  ``sw_score_batch_cuda.launches``.
-- :func:`sw_score_batch_best` routes by the tensors' device: CPU tensors
-  go to the plain version (ops/sw.py:sw_score_batch), CUDA tensors to the
-  kernel. Nothing falls back from the kernel to the plain version.
+- :func:`sw_score_batch_cuda` and :func:`sw_affine_batch_cuda` launch
+  their kernel on CUDA tensors and raise on anything the kernel does not
+  take. Each counts its launches in its ``launches`` attribute.
+- :func:`sw_score_batch_best` and :func:`sw_affine_batch_best` route by
+  the tensors' device: CPU tensors go to the plain version (ops/sw.py),
+  CUDA tensors to the kernel. Nothing falls back from a kernel to the
+  plain version.
 """
 
 from __future__ import annotations
@@ -19,10 +22,17 @@ import functools
 import torch
 
 from mini_parallel_tpu_torch import _build
-from mini_parallel_tpu_torch.ops.sw import sw_score_batch
+from mini_parallel_tpu_torch.ops.sw import (
+    GAP_EXTEND,
+    GAP_OPEN,
+    sw_affine_batch,
+    sw_score_batch,
+)
 
 KERNEL_NAME = "sw_score"
 KERNEL_SOURCES = ("sw_score.cu",)
+AFFINE_KERNEL_NAME = "sw_affine_score"
+AFFINE_KERNEL_SOURCES = ("sw_affine_score.cu",)
 # Longest side the kernel takes. int32 state is exact far beyond it
 # (|H| <= 2 * min(M, N)); the bound keeps scratch and run time sane.
 MAX_LEN = 1 << 16
@@ -38,6 +48,20 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.sw_score_launch.restype = ctypes.c_int
     lib.sw_score_scratch_per_pair.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.sw_score_scratch_per_pair.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _affine_kernel_lib() -> ctypes.CDLL:
+    lib = _build.load_library(AFFINE_KERNEL_NAME, AFFINE_KERNEL_SOURCES)
+    lib.sw_affine_score_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.sw_affine_score_launch.restype = ctypes.c_int
+    lib.sw_affine_score_scratch_per_pair.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.sw_affine_score_scratch_per_pair.restype = ctypes.c_int
     return lib
 
 
@@ -96,3 +120,50 @@ def sw_score_batch_best(seq_a: torch.Tensor, seq_b: torch.Tensor) -> torch.Tenso
     if seq_a.device.type == "cpu" and seq_b.device.type == "cpu":
         return sw_score_batch(seq_a, seq_b)
     return sw_score_batch_cuda(seq_a, seq_b)
+
+
+def sw_affine_batch_cuda(seq_a: torch.Tensor, seq_b: torch.Tensor,
+                         gap_open: int = GAP_OPEN,
+                         gap_extend: int = GAP_EXTEND) -> torch.Tensor:
+    """(B, M) uint8 PAD_A-padded x (B, N) uint8 PAD_B-padded CUDA tensors ->
+    (B,) int32 affine-gap scores, by the CUDA kernel, on the current
+    stream. Gap costs are runtime arguments and must be <= 0."""
+    _check_operands(seq_a, seq_b)
+    if gap_open > 0 or gap_extend > 0:
+        raise ValueError(
+            f"gap costs must be <= 0, got open {gap_open} extend {gap_extend}")
+    B, M = seq_a.shape
+    N = seq_b.shape[1]
+    dev = seq_a.device
+    if B == 0 or M == 0 or N == 0:
+        return torch.zeros(B, dtype=torch.int32, device=dev)
+    lib = _affine_kernel_lib()
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    per_pair = lib.sw_affine_score_scratch_per_pair(M, N)
+    scratch = (torch.empty((B, per_pair), dtype=torch.int32, device=dev)
+               if per_pair else None)
+    with torch.cuda.device(dev):
+        rc = lib.sw_affine_score_launch(
+            seq_a.data_ptr(), seq_b.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            B, M, N, int(gap_open), int(gap_extend),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"sw_affine_score kernel launch failed: CUDA error {rc}")
+    sw_affine_batch_cuda.launches += 1
+    return out
+
+
+sw_affine_batch_cuda.launches = 0
+
+
+def sw_affine_batch_best(seq_a: torch.Tensor, seq_b: torch.Tensor,
+                         gap_open: int = GAP_OPEN,
+                         gap_extend: int = GAP_EXTEND) -> torch.Tensor:
+    """Affine-gap SW scores on the operands' device: the plain version for
+    CPU tensors, the CUDA kernel (or an error) for anything else."""
+    if seq_a.device.type == "cpu" and seq_b.device.type == "cpu":
+        return sw_affine_batch(seq_a, seq_b, gap_open, gap_extend)
+    return sw_affine_batch_cuda(seq_a, seq_b, gap_open, gap_extend)

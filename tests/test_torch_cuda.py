@@ -1,5 +1,5 @@
-"""The port's CUDA kernel on the card: the kernel vs its plain PyTorch
-version (exact integer equality), the wrapper's refusals, and the sw
+"""The port's CUDA kernels on the card: each kernel vs its plain PyTorch
+version (exact integer equality), the wrappers' refusals, and the
 engine's launches. Every test needs a CUDA card and skips without one.
 
 This file imports neither jax nor the JAX package, so it also runs where
@@ -14,7 +14,7 @@ import torch
 
 from mini_parallel_tpu_torch.io import fastq
 from mini_parallel_tpu_torch.models.alignment import AlignmentEngine
-from mini_parallel_tpu_torch.ops import encode, sw, sw_cuda
+from mini_parallel_tpu_torch.ops import encode, sw, sw_cuda, sw_long
 from mini_parallel_tpu_torch.utils.config import Config
 
 pytestmark = pytest.mark.cuda
@@ -76,3 +76,78 @@ def test_engine_sw_launches_once_per_chunk(tmp_path, cuda_device, packed):
     cpu = AlignmentEngine(cfg, mode="sw", device=torch.device("cpu")).self_align_file(path)
     assert (res.score, res.total_bases, res.total_reads) == \
         (cpu.score, cpu.total_bases, cpu.total_reads)
+
+
+@pytest.mark.parametrize("B,M,N,gap_open,gap_extend", [
+    (1000, 152, 152, -2, -1), (37, 96, 64, -5, -1), (21, 600, 120, -3, -2),
+    (1, 2048, 2048, -2, -1), (5, 1, 7, 0, -2)])
+def test_affine_kernel_matches_plain(cuda_device, B, M, N, gap_open,
+                                     gap_extend):
+    rng = np.random.default_rng(B + M + N)
+    a, _ = encode.pad_batch(_rows(rng, B, M), pad_to=M, pad_value=int(encode.PAD_A))
+    b, _ = encode.pad_batch(_rows(rng, B, N), pad_to=N, pad_value=int(encode.PAD_B))
+    ta, tb = (torch.from_numpy(x).to(cuda_device) for x in (a, b))
+    launches = sw_cuda.sw_affine_batch_cuda.launches
+    got = sw_cuda.sw_affine_batch_best(ta, tb, gap_open, gap_extend)
+    torch.cuda.synchronize()
+    assert sw_cuda.sw_affine_batch_cuda.launches == launches + 1
+    assert torch.equal(got, sw.sw_affine_batch(ta, tb, gap_open, gap_extend))
+    if (gap_open, gap_extend) == (0, -2):
+        assert torch.equal(got, sw_cuda.sw_score_batch_cuda(ta, tb))
+    with pytest.raises(ValueError, match="gap costs"):
+        sw_cuda.sw_affine_batch_cuda(ta, tb, 1, -1)
+
+
+@pytest.mark.parametrize("M,W", [(1, 16), (300, 32), (3000, 512),
+                                 (5000, 8192)])
+def test_long_strip_kernels_match_plain(cuda_device, M, W):
+    rng = np.random.default_rng(M + W)
+    alphabet = np.frombuffer(b"ACGTN", np.uint8)
+    a = torch.from_numpy(rng.choice(alphabet, M)).to(cuda_device)
+    b = torch.from_numpy(rng.choice(alphabet, W)).to(cuda_device)
+    lh = torch.from_numpy(rng.integers(0, 60, M).astype(np.int32)).to(cuda_device)
+    lf = torch.from_numpy(rng.integers(-70, 50, M).astype(np.int32)).to(cuda_device)
+    n0 = sw_long.sw_strip_cuda.launches
+    got = sw_long.strip_best(False, cuda_device)(a, b, lh)
+    torch.cuda.synchronize()
+    assert sw_long.sw_strip_cuda.launches == n0 + 1
+    assert all(torch.equal(x, y) for x, y in zip(got, sw_long.sw_strip(a, b, lh)))
+    got = sw_long.strip_best(True, cuda_device)(a, b, lh, lf, -3, -1)
+    torch.cuda.synchronize()
+    want = sw_long.sw_affine_strip(a, b, lh, lf, -3, -1)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_long_pair_host_loop_on_the_card(cuda_device):
+    rng = np.random.default_rng(7)
+    a = rng.choice(np.frombuffer(b"ACGT", np.uint8), 3000)
+    b = rng.choice(np.frombuffer(b"ACGT", np.uint8), 2500)
+    b[900:1300] = a[700:1100]  # a shared segment across strip edges
+    for width in (64, 1024, 8192):
+        assert sw_long.sw_score_long(a, b, cuda_device, strip_width=width) == \
+            sw_long.sw_score_numpy_blocked(a, b)
+        assert sw_long.sw_affine_score_long(
+            a, b, cuda_device, strip_width=width) == \
+            sw_long.sw_affine_numpy_blocked(a, b)
+    with pytest.raises(ValueError, match="multiple"):
+        sw_long.sw_strip_cuda(torch.from_numpy(a).to(cuda_device),
+                              torch.from_numpy(b[:20]).to(cuda_device),
+                              torch.zeros(3000, dtype=torch.int32,
+                                          device=cuda_device))
+
+
+@pytest.mark.parametrize("mode", ["sw-affine", "contiguous"])
+def test_engine_new_modes_on_the_card(tmp_path, cuda_device, mode):
+    rng = np.random.default_rng(2)
+    reads = _rows(rng, 23, 151)
+    path = str(tmp_path / "lane.fastq.gz")
+    fastq.write_fastq(path, reads)
+    cfg = Config(chunk_size_reads=5)
+    launches = sw_cuda.sw_affine_batch_cuda.launches
+    res = AlignmentEngine(cfg, mode=mode, device=cuda_device).self_align_file(path)
+    cpu = AlignmentEngine(cfg, mode=mode, device=torch.device("cpu")).self_align_file(path)
+    assert (res.score, res.total_bases, res.failed_chunks) == \
+        (cpu.score, cpu.total_bases, 0)
+    if mode == "sw-affine":
+        assert sw_cuda.sw_affine_batch_cuda.launches == launches + 5
+        assert res.score == 2 * sum(map(len, reads))

@@ -101,11 +101,12 @@ def test_loader_raises_without_nvcc(tmp_path, monkeypatch):
     assert list(tmp_path.iterdir()) == []
 
 
-def test_build_key_follows_source(tmp_path, monkeypatch):
-    src = tmp_path / "k.cu"
-    src.write_text("// v1\n")
+@pytest.mark.parametrize("changed", ["k.cu", "h.cuh"])
+def test_build_key_follows_source(tmp_path, monkeypatch, changed):
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     p1 = _build.library_path("k", ("k.cu",))
-    src.write_text("// v2\n")
+    (tmp_path / changed).write_text("// v2\n")
     p2 = _build.library_path("k", ("k.cu",))
     assert p1 != p2 and p1.name.startswith("k-") and p1.suffix == ".so"
