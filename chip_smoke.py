@@ -44,8 +44,35 @@ Phases, one line or more each; any failure raises and exits non-zero:
    the pair's first two 200,000 x 8192 strips (strip 1 with strip 0's
    carried columns) kernel == plain on the best score and the carried
    columns. Kernel counts are zeroed before each path and read after.
+9. Variant-prep fixtures: a seeded 2-contig reference (4,641,652 bases,
+   the length of E. coli K-12 MG1655, and a 100 kb plasmid), a donor with
+   4,000 SNPs and 400 + 400 1-10-base deletions and insertions, and lanes
+   of 150 bp reads (half reverse-complemented, 0.2% substitutions, 5% Q2
+   quality bytes, 1% rescue targets whose eight probed seeds are all
+   killed): two of 465,000 reads (~30x), one of 100,000 and one of 4,000.
+10. The vs-reference kernel (csrc/sw_vs_ref.cu) == plain sw_vs_ref_batch,
+    exactly: 256 reads x 20,000 bases with a repeat and all-pad rows, rows
+    past one stripe, 8 rescue targets against the whole reference (also
+    == the strip engine, anchors == their planted starts), and a real
+    --rescue chunk against the whole reference.
+11. The traceback kernels (csrc/sw_moves.cu, linear and affine) == the
+    plain scans and walks, exactly, on best, bd, bi, positions and every
+    cell's move: a real --gapped chunk (10,000 x 152 vs 184), a ragged
+    batch, rows past one stripe.
+12. Times (CUDA events, medians; each plain version once): the vs-ref
+    kernel on the --rescue chunk and on 1,000 reads against the whole
+    reference, the traceback kernels on the --gapped chunk.
+13. ``cli.main(["--variant-prep", ...])`` on the two lanes ungapped,
+    --gapped and --gapped --gap-model affine (reads/s, mapping rate, SNP
+    recall >= 95%, indel recall printed); --rescue --sam-out on the
+    100,000-read lane (one record per read, >= 90% of the targets mapped);
+    --min-base-quality 10 (no depth above the unmasked run's); a
+    checkpoint resumed through the CLI to the clean run's pileup; the
+    4,000-read lane on the card == on the CPU (pileup, candidates, SAM
+    bytes), linear and affine. Kernel counts as in phase 8.
 
-Then one JSON line of kernel results, the nvidia-smi line, and last
+Then one JSON line of kernel results (each with its bound: see
+INT32_OPS_PER_S), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits 1 without.
 """
 
@@ -121,14 +148,16 @@ def phase_card():
 
     from mini_parallel_tpu_torch import _build
     from mini_parallel_tpu_torch.device import device_info
-    from mini_parallel_tpu_torch.ops import sw_cuda, sw_long
+    from mini_parallel_tpu_torch.ops import sw_cuda, sw_long, sw_traceback_cuda
 
     info = device_info()
     print(f"[1 card] {info['nvidia_smi']} | count {info['count']} | "
           f"torch {torch.__version__} | CUDA {torch.version.cuda}", flush=True)
     libs = [(sw_cuda.KERNEL_NAME, sw_cuda.KERNEL_SOURCES),
             (sw_cuda.AFFINE_KERNEL_NAME, sw_cuda.AFFINE_KERNEL_SOURCES),
-            (sw_long.KERNEL_NAME, sw_long.KERNEL_SOURCES)]
+            (sw_long.KERNEL_NAME, sw_long.KERNEL_SOURCES),
+            (sw_cuda.VS_REF_KERNEL_NAME, sw_cuda.VS_REF_KERNEL_SOURCES),
+            (sw_traceback_cuda.KERNEL_NAME, sw_traceback_cuda.KERNEL_SOURCES)]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         built = list(pool.map(lambda lib: _build.build(*lib), libs))
@@ -562,6 +591,8 @@ def phase_new_times(rng, main_pairs, device):
                             repeats=2), cmp_cells))
     times["long_ms"], times["long_plain_ms"] = long_times[
         sw_long.sw_score_long]
+    times["long_affine_ms"], times["long_affine_plain_ms"] = long_times[
+        sw_long.sw_affine_score_long]
     for n in (2048, 8192):
         x, y = long_pair(rng, n, n, seg=n // 2, a_at=n // 4, b_at=n // 4)
         tx, ty = pair_batch([x.tobytes()], [y.tobytes()], n, n, device)
@@ -731,14 +762,14 @@ def phase_slice_paths(rng, tmp: str, env_path: str, results_dir: str,
     fa, fb = os.path.join(tmp, "long_a.fa"), os.path.join(tmp, "long_b.fa")
     fasta.write_fasta(fa, {"a": a.tobytes()})
     fasta.write_fasta(fb, {"b": b.tobytes()})
-    long_launches = long_err = 0
+    long_err = 0
     for mode, affine, fn in (("sw", False, sw_long.sw_score_long),
                              ("sw-affine", True, sw_long.sw_affine_score_long)):
         zero()
         lines, wall = cli_lines(["--long-align", "-1", fa, "-2", fb, "--mode",
                                  mode] + env)
-        strips = counters[2].launches + counters[3].launches
-        long_launches += strips
+        strips = counters[3 if affine else 2].launches
+        launches["sw_long_affine" if affine else "sw_long"] = strips
         score = int(line_value(lines, "Alignment score:"))
         narrow = fn(a, b, device, strip_width=2048)
         print(f"[8 long-align {mode}] {LONG_M} x {LONG_N}: score {score}, "
@@ -758,7 +789,6 @@ def phase_slice_paths(rng, tmp: str, env_path: str, results_dir: str,
         check(score == plain, f"--long-align {mode}: {score} != plain {plain}")
         long_err = max(long_err, abs(score - plain),
                        compare_strips_at_scale(a, b, affine, device))
-    launches["sw_long"] = long_launches
     return launches, long_err
 
 
@@ -801,6 +831,608 @@ def compare_strips_at_scale(a: np.ndarray, b: np.ndarray, affine: bool,
     return max_err
 
 
+# ---------------------------------------------------------------------------
+# Variant prep (--variant-prep): csrc/sw_vs_ref.cu (--rescue) and
+# csrc/sw_moves.cu (--gapped, linear and affine)
+# ---------------------------------------------------------------------------
+
+# a bacterial resequencing run: the length of E. coli K-12 MG1655 (RefSeq
+# NC_000913.3) and a 100 kb plasmid, ~30x in two lanes of 150 bp reads
+VP_CONTIGS = (("chr", 4_641_652), ("plasmid", 100_000))
+VP_SNPS, VP_DELS, VP_INS = 4_000, 400, 400
+VP_LANE_READS = 465_000
+VP_SMALL_READS = 100_000  # the --rescue / --sam-out / checkpoint lane
+VP_EXACT_READS = 4_000  # the lane run on the card and on the CPU
+VP_READ_LEN = 150
+VP_ERR, VP_LOWQ, VP_TARGETS = 0.002, 0.05, 0.01
+# middles of the 8 seed windows _map_reads_both probes in a 150-base read
+# (forward offsets 0/17/34/51 and their reverse-complement counterparts):
+# a read with all eight substituted maps only through --rescue
+SEED_MIDDLES = (7, 24, 41, 58, 91, 108, 125, 142)
+VS_REF_TIMED_READS = 1_000
+ACGT = np.frombuffer(b"ACGT", np.uint8)
+BASE_CODE = np.zeros(256, np.int64)
+BASE_CODE[ACGT] = [0, 1, 2, 3]
+COMPLEMENT = np.arange(256, dtype=np.uint8)
+COMPLEMENT[ACGT] = np.frombuffer(b"TGCA", np.uint8)
+
+# The bound of a kernel: the larger of its int32 operations over the card's
+# int32 instruction rate and its bytes (inputs read once, outputs written once)
+# over the HBM rate. The rate is 132 SMs x 64 int32 lanes at the H100 SXM's
+# 1,980 MHz boost clock; the operations per DP cell are estimated from each
+# kernel's source, not read from SASS.
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_CELL = {"sw_score": 6, "sw_affine_score": 10, "sw_long": 7,
+                "sw_long_affine": 11, "sw_vs_ref": 7, "sw_moves": 15,
+                "sw_affine_moves": 24}
+
+
+def substitute(rng, bases: np.ndarray) -> np.ndarray:
+    """Each ACGT byte replaced by one of the three others."""
+    shift = rng.integers(1, 4, bases.shape)
+    return ACGT[(BASE_CODE[bases] + shift) % 4]
+
+
+def plant_variants(rng, ref: np.ndarray, n_snp: int, n_del: int, n_ins: int):
+    """(donor, donor_to_ref, truth): ``ref`` with SNPs and 1-10-base
+    deletions and insertions at sites >= 40 bases apart. donor_to_ref[k]
+    is the reference index of donor base k (-1 inside an insertion); truth
+    is ([(pos, alt)], [deletion pos], [insertion pos]), where a deletion
+    sits at its first deleted base and an insertion at the base after it,
+    as the pileup's evidence columns count them."""
+    n = n_snp + n_del + n_ins
+    sites = np.sort(rng.choice(np.arange(200, ref.size - 200, 40), n,
+                               replace=False))
+    kinds = rng.permutation(np.repeat([0, 1, 2], [n_snp, n_del, n_ins]))
+    pieces, maps, snps, dels, ins = [], [], [], [], []
+    at = 0
+    for site, kind in zip(sites.tolist(), kinds.tolist()):
+        pieces.append(ref[at:site])
+        maps.append(np.arange(at, site))
+        if kind == 0:
+            alt = substitute(rng, ref[site:site + 1])
+            pieces.append(alt)
+            maps.append(np.array([site]))
+            snps.append((site, chr(int(alt[0]))))
+            at = site + 1
+        elif kind == 1:
+            dels.append(site)
+            at = site + int(rng.integers(1, 11))
+        else:
+            k = int(rng.integers(1, 11))
+            pieces.append(rng.choice(ACGT, k))
+            maps.append(np.full(k, -1))
+            ins.append(site)
+            at = site
+    pieces.append(ref[at:])
+    maps.append(np.arange(at, ref.size))
+    return np.concatenate(pieces), np.concatenate(maps), (snps, dels, ins)
+
+
+def sample_reads(rng, donors: list, n: int) -> dict:
+    """n reads of VP_READ_LEN from the donors (a contig by its length), half
+    reverse-complemented, VP_ERR substitutions, VP_LOWQ of the quality
+    bytes at Q2 ('#', else Q37 'F'), and VP_TARGETS of the reads with all
+    eight probed seeds killed. Returns the arrays and, per read, its contig
+    and planted reference start (-1 when it starts inside an insertion)."""
+    L = VP_READ_LEN
+    sizes = np.array([d.size for d, _ in donors], np.float64)
+    contig = rng.choice(len(donors), n, p=sizes / sizes.sum())
+    seqs = np.empty((n, L), np.uint8)
+    start = np.empty(n, np.int64)
+    for c, (donor, to_ref) in enumerate(donors):
+        rows = np.nonzero(contig == c)[0]
+        s = rng.integers(0, donor.size - L, rows.size)
+        seqs[rows] = donor[s[:, None] + np.arange(L)[None, :]]
+        start[rows] = to_ref[s]
+    err = rng.random((n, L)) < VP_ERR
+    seqs[err] = substitute(rng, seqs[err])
+    rev = rng.random(n) < 0.5
+    seqs[rev] = COMPLEMENT[seqs[rev]][:, ::-1]
+    targets = np.sort(rng.choice(n, int(n * VP_TARGETS), replace=False))
+    for m in SEED_MIDDLES:
+        seqs[targets, m] = substitute(rng, seqs[targets, m])
+    quals = np.full((n, L), ord("F"), np.uint8)
+    quals[rng.random((n, L)) < VP_LOWQ] = ord("#")
+    return {"seqs": seqs, "quals": quals, "contig": contig, "start": start,
+            "targets": targets}
+
+
+def write_lane(path: str, reads: dict) -> None:
+    seqs, quals = reads["seqs"], reads["quals"]
+    text = b"".join(b"@r%d\n%s\n+\n%s\n" % (i, s.tobytes(), q.tobytes())
+                    for i, (s, q) in enumerate(zip(seqs, quals)))
+    with open(path, "wb") as f:
+        f.write(gzip.compress(text, compresslevel=1))
+
+
+def phase_variant_fixtures(rng, tmp: str) -> dict:
+    """The reference FASTA, the donor's truth, and four lanes: two of
+    VP_LANE_READS (the sample), one of VP_SMALL_READS and one of
+    VP_EXACT_READS."""
+    from mini_parallel_tpu_torch.io import fasta
+
+    t0 = time.perf_counter()
+    total = sum(length for _, length in VP_CONTIGS)
+    contigs, donors, truth = {}, [], []
+    for name, length in VP_CONTIGS:
+        ref = rng.choice(ACGT, length)
+        share = length / total
+        donor, to_ref, planted = plant_variants(
+            rng, ref, round(VP_SNPS * share), round(VP_DELS * share),
+            round(VP_INS * share))
+        contigs[name] = ref.tobytes()
+        donors.append((donor, to_ref))
+        truth.append(planted)
+    fx = {"contigs": contigs, "ref": os.path.join(tmp, "ref.fa"),
+          "names": [name for name, _ in VP_CONTIGS],
+          "snps": {(VP_CONTIGS[c][0], p, alt) for c, t in enumerate(truth)
+                   for p, alt in t[0]},
+          "indels": [(VP_CONTIGS[c][0], p, tag) for c, t in enumerate(truth)
+                     for tag, sites in (("<DEL>", t[1]), ("<INS>", t[2]))
+                     for p in sites]}
+    fasta.write_fasta(fx["ref"], contigs)
+    for key, n in (("L1", VP_LANE_READS), ("L2", VP_LANE_READS),
+                   ("small", VP_SMALL_READS), ("exact", VP_EXACT_READS)):
+        reads = sample_reads(rng, donors, n)
+        path = os.path.join(tmp, f"VP_{key}.fastq.gz")
+        write_lane(path, reads)
+        fx[key] = path
+        fx[f"{key}_reads"] = {k: reads[k] for k in ("contig", "start",
+                                                    "targets")}
+    G = total + 512 * (len(VP_CONTIGS) - 1)
+    print(f"[9 fixtures] reference {' + '.join(f'{n} {l}' for n, l in VP_CONTIGS)}"
+          f" bases (G = {G} with the spacer); {len(fx['snps'])} SNPs, "
+          f"{len(fx['indels'])} indels planted; lanes {VP_LANE_READS} x 2, "
+          f"{VP_SMALL_READS}, {VP_EXACT_READS} reads of {VP_READ_LEN} bp: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return fx
+
+
+def time_once(fn):
+    """(CUDA-event ms of one call, its result)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def real_chunk(eng, path: str, device) -> dict:
+    """The first CHUNK_READS reads of a lane mapped by the engine's own
+    steps: the gapped traceback's operands (queries, windows) and the
+    --rescue kernel's operand (the forward queries and their reverse
+    complements as one (2B, M) batch, every mapped read blanked to pad)."""
+    import torch
+
+    from mini_parallel_tpu_torch.io import fastq
+    from mini_parallel_tpu_torch.models import variant_prep as vp
+    from mini_parallel_tpu_torch.ops import encode
+
+    chunks = fastq.iter_flat_chunks(path, CHUNK_READS)
+    flat, offs = next(chunks)
+    chunks.close()
+    arr, lens, pad = eng._prep_batch_flat(flat, offs)
+    lens = torch.from_numpy(np.asarray(lens, np.int32)).to(device)
+    idx = eng.index
+    codes, starts, mapped, _ = vp._map_codes_batch(
+        encode.ascii_to_code(torch.from_numpy(arr).to(device)), lens,
+        idx.sorted_keys, idx.sorted_pos, idx.ref_ascii_dev, vp.SEED_K, False,
+        eng.rescue_min_frac)
+    G = len(idx.ref_codes)
+    queries, windows, _ = vp._gapped_operands(
+        codes, lens, starts, mapped, idx.ref_ascii_dev, G,
+        pad + 2 * eng.window_margin, eng.window_margin)
+    both = torch.cat([codes, vp._revcomp_codes(codes, lens)])
+    return {"queries": queries, "windows": windows, "lens": lens,
+            "mapped": mapped,
+            "rescue": vp._codes_to_ascii(both, lens.repeat(2),
+                                         keep=(~mapped).repeat(2))}
+
+
+def phase_vs_ref_compare(rng, eng, fx: dict, chunk: dict, device) -> dict:
+    """csrc/sw_vs_ref.cu == plain sw_vs_ref_batch on the card, exactly: 256
+    reads against 20,000 bases (a repeat, all-pad and all-N rows), rows
+    past one stripe (M = 300), 8 rescue targets at full length (both
+    strands; also == the strip engine, and the anchor == the planted
+    start), and a real --rescue chunk against the whole reference (timed,
+    the plain version once)."""
+    import torch
+
+    from mini_parallel_tpu_torch.ops import encode, sw, sw_cuda, sw_long
+
+    ref_full = eng.index.ref_ascii_dev
+    G = ref_full.numel()
+    chr_ref = np.frombuffer(fx["contigs"]["chr"], np.uint8)
+    out = {"max_err": 0}
+
+    def compare(name, reads, ref):
+        got = sw_cuda.sw_vs_ref_batch_cuda(reads, ref)
+        plain_ms, want = time_once(lambda: sw.sw_vs_ref_batch(reads, ref))
+        torch.cuda.synchronize()
+        err = max(int((g.long() - w.long()).abs().max()) for g, w in
+                  zip(got, want))
+        out["max_err"] = max(out["max_err"], err)
+        live = int((reads != int(encode.PAD_A)).any(dim=1).sum())
+        print(f"[10 vs-ref] {name}: B={reads.shape[0]} ({live} swept) M="
+              f"{reads.shape[1]} N={ref.numel()} kernel==plain "
+              f"{err == 0} max_abs_err {err} max_score {int(got[0].max())} | "
+              f"plain {plain_ms:.1f} ms", flush=True)
+        check(err == 0, f"vs-ref kernel != plain on {name}")
+        return got, plain_ms
+
+    for name, (B, M, N) in (("20,000-base reference", (256, 152, 20_000)),
+                            ("rows past one stripe", (9, 300, 4_000))):
+        ref = chr_ref[:N].copy()
+        ref[N // 2:N // 2 + 60] = ref[100:160]  # a repeat: equal ends
+        ref[N // 3:N // 3 + 30] = ord("N")
+        rows = []
+        for k in range(B):
+            n = int(rng.integers(1, M + 1))
+            s = int(rng.integers(0, N - n))
+            cut = ref[s:s + n].copy()
+            cut[rng.random(n) < 0.03] = ord("A")
+            rows.append([b"", b"N" * n, cut.tobytes(),
+                         ref[100:100 + min(n, 60)].tobytes(),
+                         COMPLEMENT[cut][::-1].tobytes()][k % 5])
+        reads = padded(rows, M, int(encode.PAD_A), device)
+        (scores, ends), _ = compare(name, reads,
+                                    torch.from_numpy(ref).to(device))
+        check(int(scores[0]) == 0 and int(ends[0]) == -1,
+              "an all-pad read must give (0, -1)")
+
+    # 8 rescue targets cut from the reference, 4 of them reverse-complemented
+    starts = np.sort(rng.integers(1_000, chr_ref.size - 1_000, 8))
+    fwd, planted = [], []
+    for k, s in enumerate(starts.tolist()):
+        r = chr_ref[s:s + VP_READ_LEN].copy()
+        r[list(SEED_MIDDLES)] = substitute(rng, r[list(SEED_MIDDLES)])
+        fwd.append(r.tobytes() if k % 2 == 0 else
+                   COMPLEMENT[r][::-1].tobytes())
+        planted.append(s)
+    rcs = [COMPLEMENT[np.frombuffer(r, np.uint8)][::-1].tobytes() for r in fwd]
+    both = padded(fwd + rcs, 152, int(encode.PAD_A), device)
+    (scores, ends), _ = compare("8 rescue targets x 2 strands, whole "
+                                "reference", both, ref_full)
+    ref_np = eng.index.ref_ascii_dev.cpu().numpy()
+    anchors = []
+    for k in range(8):
+        s_f, s_r = int(scores[k]), int(scores[8 + k])
+        # rows along the reference: one strip of the read's width
+        strips = [sw_long.sw_score_long(ref_np, np.frombuffer(r, np.uint8),
+                                        device) for r in (fwd[k], rcs[k])]
+        check([s_f, s_r] == strips,
+              f"target {k}: vs-ref {[s_f, s_r]} != strip engine {strips}")
+        end = int(ends[8 + k]) if s_r > s_f else int(ends[k])
+        anchors.append(end - VP_READ_LEN + 1)
+    print(f"[10 vs-ref] the 8 targets' scores == sw_score_long (strip "
+          f"engine) on both strands; anchors {anchors}, planted {planted}",
+          flush=True)
+    check(anchors == planted, "a rescued anchor is not its planted start")
+
+    got, plain_ms = compare("a --rescue chunk of lane 1 (mapped reads "
+                            "blanked)", chunk["rescue"], ref_full)
+    kernel = time_samples(
+        lambda: sw_cuda.sw_vs_ref_batch_cuda(chunk["rescue"], ref_full),
+        repeats=3)
+    live = (chunk["rescue"] != int(encode.PAD_A)).any(dim=1)
+    cells = float(chunk["lens"].repeat(2)[live].sum()) * G
+    rows = chunk["rescue"].shape[0]
+    out.update(
+        ms=report_time(12, f"sw_vs_ref kernel, a --rescue chunk ({int(live.sum())}"
+                       f" of {rows} rows swept, both strands) x G = {G}",
+                       kernel, cells),
+        plain_ms=plain_ms, cells=cells,
+        bytes=float(chunk["rescue"].numel() + G + 8 * rows))
+    print(f"[12 time] sw_vs_ref plain, the same chunk, once: {plain_ms:.1f} ms "
+          f"({cells / plain_ms / 1e6:.1f} GCUPS)", flush=True)
+    many = padded([chr_ref[s:s + VP_READ_LEN].tobytes() for s in
+                   rng.integers(0, chr_ref.size - VP_READ_LEN,
+                                VS_REF_TIMED_READS)],
+                  152, int(encode.PAD_A), device)
+    report_time(12, f"sw_vs_ref kernel, {VS_REF_TIMED_READS} reads x G = {G}",
+                time_samples(lambda: sw_cuda.sw_vs_ref_batch_cuda(many, ref_full),
+                             repeats=3),
+                float(VS_REF_TIMED_READS) * VP_READ_LEN * G)
+    return out
+
+
+def moves_pairs(rng, B: int, M: int, N: int, device):
+    """Reads cut from their windows with substitutions and a 3-base gap,
+    unrelated reads and empty reads."""
+    from mini_parallel_tpu_torch.ops import encode
+
+    rows_a, rows_b = [], []
+    for k in range(B):
+        win = rng.choice(ACGT, N)
+        n = int(rng.integers(1, min(M, N - 8) + 1))
+        s = int(rng.integers(0, N - n))
+        read = win[s:s + n].copy()
+        read[rng.random(n) < 0.05] = ord("T")
+        read = np.concatenate([read[:n // 2], read[n // 2 + 3:]])
+        rows_a.append([read.tobytes(), b"", rng.choice(ACGT, n).tobytes(),
+                       read.tobytes()][k % 4])
+        rows_b.append(win.tobytes())
+    return pair_batch(rows_a, rows_b, M, N, device)
+
+
+def phase_moves_compare(rng, chunk: dict, gaps: tuple, device) -> dict:
+    """csrc/sw_moves.cu == the plain scans and walks on the card, exactly,
+    linear and affine: best, bd, bi, positions and the move of every cell,
+    on a real --gapped chunk (10,000 x 152 against 184-base windows), a
+    ragged batch and rows past one stripe (M = 300). Times each kernel on
+    the chunk and each plain version once."""
+    import torch
+
+    from mini_parallel_tpu_torch.ops import encode
+    from mini_parallel_tpu_torch.ops import sw_traceback as tb
+    from mini_parallel_tpu_torch.ops import sw_traceback_cuda as tbc
+
+    q, w = chunk["queries"], chunk["windows"]
+    cases = {"a --gapped chunk of lane 1": (q, w, gaps),
+             "ragged B=33 M=37 N=50": (*moves_pairs(rng, 33, 37, 50, device),
+                                       (-3, -1)),
+             "rows past one stripe B=21 M=300 N=200": (
+                 *moves_pairs(rng, 21, 300, 200, device), (-3, 0))}
+    out = {"max_err": 0}
+    for name, (a, b, (go, ge)) in cases.items():
+        for label, kernel, plain, walk, args in (
+                ("linear", tbc.sw_moves_batch_cuda, tb.sw_moves_batch,
+                 tb._positions_walk, ()),
+                ("affine", tbc.sw_affine_moves_batch_cuda,
+                 tb.sw_affine_moves_batch, tb._affine_walk, (go, ge))):
+            got = kernel(a, b, *args, return_moves=True)
+            best, bd, bi, moves = plain(a, b, *args)
+            pos = walk(best, bd, bi, moves)
+            torch.cuda.synchronize()
+            err = max(int((g.long() - x.long()).abs().max())
+                      for g, x in zip(got[:4], (best, bd, bi, pos)))
+            cells_equal = torch.equal(
+                tbc.moves_to_cells(got[4], a.shape[1], b.shape[1]),
+                tb.plain_moves_to_cells(moves, b.shape[1]))
+            out["max_err"] = max(out["max_err"], err, int(not cells_equal))
+            aligned = int((pos >= 0).sum())
+            print(f"[11 moves] {label} {name}{f' ({go}, {ge})' if args else ''}:"
+                  f" B={a.shape[0]} M={a.shape[1]} N={b.shape[1]} best, bd, "
+                  f"bi, positions kernel==plain {err == 0} (max_abs_err "
+                  f"{err}); every cell's move equal {cells_equal}; "
+                  f"{aligned} aligned bases", flush=True)
+            check(err == 0 and cells_equal,
+                  f"{label} moves kernel != plain on {name}")
+
+    mapped_bases = float(chunk["lens"][chunk["mapped"]].sum())
+    cells = mapped_bases * w.shape[1]
+    B, M, N = q.shape[0], q.shape[1], w.shape[1]
+    nbytes = float(B * M + B * N + 12 * B + 4 * B * M)
+    for key, kernel, plain, args in (
+            ("sw_moves", tbc.sw_moves_batch_cuda, tb.sw_positions_batch, ()),
+            ("sw_affine_moves", tbc.sw_affine_moves_batch_cuda,
+             tb.sw_affine_positions_batch, gaps)):
+        ms = report_time(12, f"{key} kernel, the --gapped chunk {B} x {M} vs "
+                         f"{N}", time_samples(lambda: kernel(q, w, *args), 5),
+                         cells)
+        plain_ms, _ = time_once(lambda: plain(q, w, *args))
+        print(f"[12 time] {key} plain (scan + walk), the same chunk, once: "
+              f"{plain_ms:.1f} ms ({cells / plain_ms / 1e6:.1f} GCUPS)",
+              flush=True)
+        out[key] = {"ms": ms, "plain_ms": plain_ms, "cells": cells,
+                    "bytes": nbytes}
+    return out
+
+
+def vcf_calls(path: str) -> set:
+    calls = set()
+    with open(path) as f:
+        for line in f:
+            if not line.startswith("#"):
+                c = line.split("\t")
+                calls.add((c[0], int(c[1]) - 1, c[4]))
+    return calls
+
+
+def indel_recall(calls: set, indels: list, slack: int = 10) -> float:
+    """The share of planted indels with a call of their kind within
+    ``slack`` bases (a gap's placement in a repeat is ambiguous)."""
+    at = {}
+    for contig, pos, alt in calls:
+        at.setdefault((contig, alt), []).append(pos)
+    hit = 0
+    for contig, pos, tag in indels:
+        near = np.sort(at.get((contig, tag), []))
+        k = np.searchsorted(near, pos - slack)
+        hit += k < near.size and near[k] <= pos + slack
+    return hit / max(len(indels), 1)
+
+
+def sam_records(path: str) -> list[list[str]]:
+    with open(path) as f:
+        return [ln.rstrip("\n").split("\t") for ln in f if not ln.startswith("@")]
+
+
+def phase_variant_paths(fx: dict, env_path: str, tmp: str, device) -> dict:
+    """--variant-prep through cli.main at the full configuration: the
+    two-lane sample ungapped, --gapped and --gapped --gap-model affine
+    (SNP recall >= 95%, indel recall printed); --rescue --sam-out on the
+    small lane (one record per read, >= 90% of the rescue targets mapped);
+    --min-base-quality 10 (no depth above the unmasked run's); a
+    checkpoint resumed through the CLI to the clean run's pileup; and the
+    exact lane on the card == on the CPU (pileup, candidates, SAM bytes).
+    Each path's kernel counts are set to 0 just before it and read just
+    after."""
+    import torch
+
+    from mini_parallel_tpu_torch.models import variant_prep as vp
+    from mini_parallel_tpu_torch.ops import sw_cuda
+    from mini_parallel_tpu_torch.ops import sw_traceback_cuda as tbc
+    from mini_parallel_tpu_torch.utils.config import Config
+
+    counters = {"sw_vs_ref": sw_cuda.sw_vs_ref_batch_cuda,
+                "sw_moves": tbc.sw_moves_batch_cuda,
+                "sw_affine_moves": tbc.sw_affine_moves_batch_cuda}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def counts() -> dict:
+        torch.cuda.synchronize()
+        return {k: fn.launches for k, fn in counters.items()}
+
+    base = ["--reference", fx["ref"], "--env", env_path]
+    sample = f"{fx['L1']},{fx['L2']}"
+    n_sample = 2 * VP_LANE_READS
+    chunks = 2 * -(-VP_LANE_READS // CHUNK_READS)
+    launches = {}
+    for mode, extra, kernel in (
+            ("ungapped", [], None),
+            ("gapped linear", ["--gapped"], "sw_moves"),
+            ("gapped affine", ["--gapped", "--gap-model", "affine"],
+             "sw_affine_moves")):
+        vcf = os.path.join(tmp, f"vp_{mode.replace(' ', '_')}.vcf")
+        zero()
+        lines, wall = cli_lines(["--variant-prep", sample, *base, *extra,
+                                 "--vcf-out", vcf])
+        n = counts()
+        calls = vcf_calls(vcf)
+        snp = len(fx["snps"] & calls) / len(fx["snps"])
+        indel = indel_recall(calls, fx["indels"])
+        print(f"[13 variant-prep {mode}] {line_value(lines, 'Reads:')} | "
+              f"{n_sample / wall:.0f} reads/s ({wall:.2f} s) | "
+              f"{line_value(lines, 'Candidate variant sites:')} candidates, "
+              f"SNP recall {100 * snp:.2f} %, indel recall {100 * indel:.2f} "
+              f"% | launches {n}", flush=True)
+        check(snp >= 0.95, f"{mode}: SNP recall {snp:.4f} < 0.95")
+        check(n["sw_vs_ref"] == 0, f"{mode} launched the rescue kernel")
+        if kernel:
+            launches[kernel] = n[kernel]
+            check(n[kernel] == chunks, f"{mode}: {n[kernel]} launches for "
+                  f"{chunks} chunks")
+        else:
+            check(n["sw_moves"] == n["sw_affine_moves"] == 0,
+                  "ungapped mode launched a traceback kernel")
+
+    small = fx["small"]
+    sam = os.path.join(tmp, "vp_small.sam")
+    zero()
+    lines, wall = cli_lines(["--variant-prep", small, *base, "--gapped",
+                             "--rescue", "--sam-out", sam])
+    n = counts()
+    launches["sw_vs_ref"] = n["sw_vs_ref"]
+    recs = sam_records(sam)
+    info = fx["small_reads"]
+    targets = info["targets"]
+    mapped = np.array([not int(r[1]) & 4 for r in recs])
+    names = fx["names"]
+    at_start = sum(mapped[t] and recs[t][2] == names[info["contig"][t]]
+                   and int(recs[t][3]) - 1 == info["start"][t]
+                   for t in targets.tolist())
+    rate = float(mapped[targets].mean()) if len(recs) == VP_SMALL_READS else 0
+    small_chunks = -(-VP_SMALL_READS // CHUNK_READS)
+    print(f"[13 rescue] --gapped --rescue --sam-out, {VP_SMALL_READS} reads: "
+          f"{line_value(lines, 'Reads:')} | {len(recs)} SAM records | "
+          f"rescue targets mapped {int(mapped[targets].sum())}/"
+          f"{targets.size} ({100 * rate:.2f} %), {at_start} at their planted "
+          f"start | launches {n} | {wall:.2f} s", flush=True)
+    check(len(recs) == VP_SMALL_READS, "--sam-out wrote not one record per read")
+    check(rate >= 0.9, f"--rescue mapped {rate:.4f} < 0.9 of its targets")
+    check(n["sw_vs_ref"] == small_chunks and n["sw_moves"] == small_chunks,
+          f"--rescue launches {n} for {small_chunks} chunks")
+
+    cfg = Config(chunk_size_reads=CHUNK_READS)
+    contigs = fx["contigs"]
+    clean = vp.VariantPrepEngine(contigs, cfg, gapped=True,
+                                 device=device).process_file(small)
+    masked = vp.VariantPrepEngine(contigs, cfg, gapped=True,
+                                  min_base_quality=10,
+                                  device=device).process_file(small)
+    depth0, depth1 = clean.pileup[:, :4].sum(1), masked.pileup[:, :4].sum(1)
+    print(f"[13 min-base-quality] --min-base-quality 10 on {VP_SMALL_READS} "
+          f"reads: bases in the pileup {int(depth1.sum())} of "
+          f"{int(depth0.sum())}, {int((depth1 > depth0).sum())} sites above "
+          f"the unmasked depth | mapped {masked.mapped_reads} == "
+          f"{clean.mapped_reads}", flush=True)
+    check(bool((depth1 <= depth0).all()) and depth1.sum() < depth0.sum(),
+          "the quality mask raised a depth or masked nothing")
+    check(masked.mapped_reads == clean.mapped_reads,
+          "the quality mask changed the mapping")
+
+    ckpt = os.path.join(tmp, "vp_small.npz")
+
+    def crash_after_five(line, seen=[]):  # noqa: B006 (a per-run count)
+        seen.append(line)
+        if len(seen) == 5:
+            raise KeyboardInterrupt("a crash after chunk 5")
+
+    try:
+        vp.VariantPrepEngine(contigs, cfg, gapped=True, device=device
+                             ).process_file(small, progress=crash_after_five,
+                                            checkpoint_path=ckpt,
+                                            checkpoint_every=2)
+    except KeyboardInterrupt:
+        pass
+    zero()
+    lines, _ = cli_lines(["--variant-prep", small, *base, "--gapped",
+                          "--prep-checkpoint", ckpt,
+                          "--prep-checkpoint-every", "2"])
+    n = counts()
+    with np.load(ckpt) as z:
+        resumed = z["pileup"]
+        meta = json.loads(str(z["meta"]))
+    same = bool(np.array_equal(resumed, clean.pileup))
+    print(f"[13 checkpoint] crashed after chunk 5 (snapshot at 4), resumed "
+          f"through the CLI: {n['sw_moves']} traceback launches for the "
+          f"{small_chunks - 4} chunks left, pileup == the clean run's {same}, "
+          f"mapped {meta['mapped_reads']} == {clean.mapped_reads}", flush=True)
+    check(n["sw_moves"] == small_chunks - 4, "the CLI did not resume at chunk 4")
+    check(same and meta["mapped_reads"] == clean.mapped_reads
+          and meta["chunks_done"] == small_chunks,
+          "the resumed pileup differs from the clean run's")
+    check(line_value(lines, "Reads:").startswith(f"{VP_SMALL_READS}, mapped: "
+                                                 f"{clean.mapped_reads} "),
+          "the resumed CLI run printed other counts")
+
+    for gap_model in ("linear", "affine"):
+        runs = []
+        for k, dev in enumerate((device, torch.device("cpu"))):
+            sam = os.path.join(tmp, f"vp_exact_{gap_model}_{k}.sam")
+            res = vp.VariantPrepEngine(contigs, cfg, gapped=True,
+                                       gap_model=gap_model, device=dev
+                                       ).process_file(fx["exact"], sam_out=sam)
+            with open(sam, "rb") as f:
+                runs.append((res, f.read()))
+        (g, gsam), (c, csam) = runs
+        same = (np.array_equal(g.pileup, c.pileup)
+                and g.candidates == c.candidates and gsam == csam
+                and g.mapped_reads == c.mapped_reads)
+        print(f"[13 exact] {gap_model}, {VP_EXACT_READS} reads: card == CPU "
+              f"plain versions (pileup, {len(g.candidates)} candidates, "
+              f"{len(gsam)} SAM bytes, {g.mapped_reads} mapped): {same}",
+              flush=True)
+        check(same, f"{gap_model}: the card's variant prep != the CPU's")
+    return launches
+
+
+def kernel_entry(name: str, replaces: str, source: str, launches: int,
+                 max_err: int, ms: float, plain_ms: float, cells: float,
+                 nbytes: float) -> dict:
+    """One kernel's line of the JSON result, with its bound (see
+    INT32_OPS_PER_S) computed from this run's cells and bytes."""
+    ops_ms = cells * OPS_PER_CELL[name] / INT32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"name": name, "route": "cuda",
+            "source": f"mini_parallel_tpu_torch/csrc/{source}",
+            "replaces": f"mini_parallel_tpu/{replaces}",
+            "launches": launches, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None}
+
+
 def main() -> int:
     import torch
 
@@ -809,6 +1441,8 @@ def main() -> int:
               "CUDA card", file=sys.stderr)
         return 1
     from mini_parallel_tpu_torch.device import require_cuda
+    from mini_parallel_tpu_torch.models.variant_prep import VariantPrepEngine
+    from mini_parallel_tpu_torch.utils.config import Config
 
     device = require_cuda()
     rng = np.random.default_rng(SEED)
@@ -823,37 +1457,41 @@ def main() -> int:
         times = phase_new_times(rng, main_pairs, device)
         slice_launches, scale_err = phase_slice_paths(
             rng, tmp, env_path, results_dir, total_bases, device)
-    print(json.dumps({"kernels": [{
-        "name": "sw_score",
-        "route": "cuda",
-        "source": "mini_parallel_tpu_torch/csrc/sw_score.cu",
-        "replaces": "mini_parallel_tpu/ops/sw_pallas.py:106",
-        "also_replaces": "mini_parallel_tpu/ops/sw_pallas.py:317",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "sw_affine_score",
-        "route": "cuda",
-        "source": "mini_parallel_tpu_torch/csrc/sw_affine_score.cu",
-        "replaces": "mini_parallel_tpu/ops/sw_pallas.py:585",
-        "also_replaces": "mini_parallel_tpu/ops/sw_pallas.py:637",
-        "launches": slice_launches["sw_affine_score"],
-        "max_abs_err": affine_err,
-        "ms": times["affine_ms"],
-        "plain_ms": times["affine_plain_ms"],
-    }, {
-        "name": "sw_long",
-        "route": "cuda",
-        "source": "mini_parallel_tpu_torch/csrc/sw_long.cu",
-        "replaces": "mini_parallel_tpu/ops/sw_long.py:71",
-        "also_replaces": "mini_parallel_tpu/ops/sw_long.py:539",
-        "launches": slice_launches["sw_long"],
-        "max_abs_err": max(long_err, scale_err),
-        "ms": times["long_ms"],
-        "plain_ms": times["long_plain_ms"],
-    }]}))
+        fx = phase_variant_fixtures(rng, tmp)
+        cfg = Config(chunk_size_reads=CHUNK_READS)
+        eng = VariantPrepEngine(fx["contigs"], cfg, device=device)
+        chunk = real_chunk(eng, fx["L1"], device)
+        vs_ref = phase_vs_ref_compare(rng, eng, fx, chunk, device)
+        moves = phase_moves_compare(rng, chunk, (cfg.gap_open,
+                                                 cfg.gap_extend), device)
+        del eng, chunk
+        vp_launches = phase_variant_paths(fx, env_path, tmp, device)
+    main_cells = float(MAIN_B) * MAIN_LEN * MAIN_LEN
+    main_bytes = float(2 * MAIN_B * MAIN_PAD + 4 * MAIN_B)
+    print(json.dumps({"kernels": [
+        kernel_entry("sw_score", "ops/sw_pallas.py:106", "sw_score.cu",
+                     launches, max_err, kernel_ms, plain_ms, main_cells,
+                     main_bytes),
+        kernel_entry("sw_affine_score", "ops/sw_pallas.py:585",
+                     "sw_affine_score.cu", slice_launches["sw_affine_score"],
+                     affine_err, times["affine_ms"], times["affine_plain_ms"],
+                     main_cells, main_bytes),
+        *(kernel_entry(key, f"ops/sw_long.py:{line}", "sw_long.cu",
+                       slice_launches[key], max(long_err, scale_err),
+                       times[f"{tkey}_ms"], times[f"{tkey}_plain_ms"],
+                       float(CMP_M) * CMP_N, float(CMP_M + CMP_N))
+          for key, tkey, line in (("sw_long", "long", 71),
+                                  ("sw_long_affine", "long_affine", 539))),
+        kernel_entry("sw_vs_ref", "ops/sw_pallas.py:477", "sw_vs_ref.cu",
+                     vp_launches["sw_vs_ref"], vs_ref["max_err"],
+                     vs_ref["ms"], vs_ref["plain_ms"], vs_ref["cells"],
+                     vs_ref["bytes"]),
+        *(kernel_entry(key, f"ops/sw_traceback.py:{line}", "sw_moves.cu",
+                       vp_launches[key], moves["max_err"], moves[key]["ms"],
+                       moves[key]["plain_ms"], moves[key]["cells"],
+                       moves[key]["bytes"])
+          for key, line in (("sw_moves", 148), ("sw_affine_moves", 800))),
+    ]}))
     print(info["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

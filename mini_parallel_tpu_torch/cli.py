@@ -2,16 +2,20 @@
 
 The flag surface is the JAX package's (itself ``smith_waterman/src/main.rs:11-46``
 plus its additions). Ported: ``--full-wgs``, ``--test-wgs``, direct
-``-1/-2`` pairs of any length, ``--files`` pair mode, ``--complementarity``
-and ``--long-align``, in every ``--mode`` (kadane, sw, sw-affine,
+``-1/-2`` pairs of any length, ``--files`` pair mode, ``--complementarity``,
+``--long-align`` and ``--variant-prep`` (with ``--gapped``, ``--gap-model``,
+``--rescue``, ``--min-base-quality``, ``--vcf-out``, ``--sam-out`` and
+``--prep-checkpoint``), in every ``--mode`` (kadane, sw, sw-affine,
 contiguous), with ``--allow-cpu``, ``--env``, ``--chunk-size`` and
-``--retries``. ``--kmer``, ``--variant-prep``, ``--profile`` and
+``--retries``. ``--kmer``, ``--genotype``, ``--profile`` and
 ``MPT_MESH_SHAPE`` are accepted and exit 2 with "not yet ported".
 
     python -m mini_parallel_tpu_torch --full-wgs --mode sw
     python -m mini_parallel_tpu_torch --files -1 R1.fastq.gz -2 R2.fastq.gz
     python -m mini_parallel_tpu_torch --complementarity -1 R1.fastq.gz -2 R2.fastq.gz
     python -m mini_parallel_tpu_torch --long-align -1 a.fa -2 b.fa --mode sw-affine
+    python -m mini_parallel_tpu_torch --variant-prep L1.fastq.gz,L2.fastq.gz \
+        --reference ref.fa --gapped --gap-model affine --vcf-out calls.vcf
 
 A CUDA device is mandatory, as the reference's GPU was (main.rs:76-79),
 unless ``--allow-cpu`` asks for the CPU explicitly.
@@ -29,7 +33,7 @@ from mini_parallel_tpu_torch.utils import config as config_mod
 # mode flags of the JAX package that this package does not run yet
 _NOT_PORTED = (
     ("kmer", "--kmer"),
-    ("variant_prep", "--variant-prep"),
+    ("genotype", "--genotype"),
     ("profile", "--profile"),
 )
 
@@ -37,9 +41,10 @@ _NOT_PORTED = (
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="mini_parallel_tpu_torch",
-        description="Sequence alignment on one CUDA GPU: the PyTorch port "
-        "of mini_parallel_tpu (--full-wgs, --test-wgs, --files, "
-        "--complementarity, --long-align, direct pairs).",
+        description="Sequence alignment and variant-call prep on one CUDA "
+        "GPU: the PyTorch port of mini_parallel_tpu (--full-wgs, --test-wgs, "
+        "--files, --complementarity, --long-align, --variant-prep, direct "
+        "pairs).",
     )
     p.add_argument("-1", "--seq1", help="first sequence (or file path with --files)")
     p.add_argument("-2", "--seq2", help="second sequence (or file path with --files)")
@@ -76,7 +81,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="direct+complementary mate-pair analysis of -1/-2 "
                    "lane files (%% non-complementary metric)")
     p.add_argument("--variant-prep", metavar="FASTQ[,FASTQ...]",
-                   help="variant-call prep (not yet ported)")
+                   help="map reads to --reference, build the pileup, emit "
+                   "candidate variant sites; comma-separate lanes to process "
+                   "a whole sample")
     p.add_argument("--reference", metavar="FASTA",
                    help="reference FASTA(.gz) for --variant-prep")
     p.add_argument("--vcf-out", metavar="PATH", default=None,
@@ -92,7 +99,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rescue", action="store_true",
                    help="SW rescue for --variant-prep")
     p.add_argument("--genotype", action="store_true",
-                   help="Pair-HMM genotyping for --variant-prep")
+                   help="Pair-HMM genotyping for --variant-prep (not yet "
+                   "ported)")
     p.add_argument("--gt-window", type=int, default=50, metavar="W",
                    help="haplotype half-window for --genotype")
     p.add_argument("--gt-max-reads", type=int, default=64, metavar="N",
@@ -148,7 +156,7 @@ def main(argv: list[str] | None = None, echo=print) -> int:
                 ok = False
         return 0 if ok else 1
 
-    if not (args.full_wgs or (args.seq1 and args.seq2)):
+    if not (args.full_wgs or args.variant_prep or (args.seq1 and args.seq2)):
         if args.complementarity:
             echo("ERROR: --complementarity requires -1 R1.fastq.gz -2 R2.fastq.gz")
         elif args.long_align:
@@ -185,6 +193,8 @@ def main(argv: list[str] | None = None, echo=print) -> int:
                                            retries=args.retries)
         echo(f"Processed {len(results)} files")
         return 0
+    if args.variant_prep:
+        return _variant_prep(args, cfg, device, echo)
     if args.complementarity:
         return _complementarity(args, cfg, device, echo)
     if args.long_align:
@@ -202,6 +212,54 @@ def main(argv: list[str] | None = None, echo=print) -> int:
         return 0
     score = engine.score_strings(args.seq1, args.seq2)  # main.rs:183-191
     echo(f"Alignment score: {score}")
+    return 0
+
+
+def _variant_prep(args, cfg, device, echo) -> int:
+    if not args.reference:
+        echo("ERROR: --variant-prep requires --reference FASTA")
+        return 2
+    if args.sam_out and not args.gapped:
+        echo("ERROR: --sam-out requires --gapped (SAM CIGARs come from "
+             "the traceback)")
+        return 2
+    from mini_parallel_tpu_torch.io import fasta
+    from mini_parallel_tpu_torch.models.variant_prep import (
+        VariantPrepEngine,
+        write_candidates_vcf,
+    )
+
+    try:
+        recs = fasta.read_fasta(args.reference)
+        if not recs:
+            raise ValueError(f"no FASTA records in {args.reference}")
+        # references always map through the contig table, so candidate and
+        # VCF coordinates carry the real record names
+        veng = VariantPrepEngine(recs, cfg, gapped=args.gapped,
+                                 rescue=args.rescue,
+                                 min_base_quality=args.min_base_quality,
+                                 gap_model=args.gap_model, device=device)
+        paths = args.variant_prep.split(",")
+        res = veng.process_file(
+            paths if len(paths) > 1 else paths[0], progress=echo,
+            sam_out=args.sam_out, checkpoint_path=args.prep_checkpoint,
+            checkpoint_every=args.prep_checkpoint_every)
+    except (OSError, IOError, ValueError) as e:
+        echo(f"ERROR: {e}")
+        return 1
+    echo(f"Reference length: {res.reference_length}")
+    echo(f"Reads: {res.total_reads}, mapped: {res.mapped_reads} "
+         f"({100*res.mapping_rate:.1f} %)")
+    echo(f"Candidate variant sites: {len(res.candidates)}")
+    for c in res.candidates[:10]:
+        echo(f"  {c.contig}:{c.pos+1}: {c.ref_base}->{c.alt_base} "
+             f"depth={c.depth} alt={c.alt_count}")
+    if args.vcf_out:
+        write_candidates_vcf(args.vcf_out, res)
+        echo(f"Candidates written to {args.vcf_out}")
+    if args.sam_out:
+        echo(f"SAM: {res.total_reads} records ({res.mapped_reads} "
+             f"mapped) -> {args.sam_out}")
     return 0
 
 

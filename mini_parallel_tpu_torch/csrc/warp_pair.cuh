@@ -1,5 +1,6 @@
-// Geometry shared by the batched warp-per-pair kernels (sw_score.cu and
-// sw_affine_score.cu): one warp sweeps one pair; lane l owns a band of
+// Geometry shared by the warp-per-pair kernels (sw_score.cu,
+// sw_affine_score.cu, sw_vs_ref.cu, sw_moves.cu): one warp sweeps one
+// pair (or one read against the reference); lane l owns a band of
 // R = rows_per_lane(M) consecutive rows; rows beyond 32 * R run in stripes
 // whose bottom row goes through a scratch row in device memory.
 

@@ -8,7 +8,9 @@ a FASTQ record is 4 lines and the sequence is every line where
 grouped into chunks of ``chunk_size_reads`` and a non-empty final partial
 chunk is still yielded (aligner.rs:167-170). gzip decodes in-process.
 
-The native C++ decoder of the JAX package is not ported yet.
+Multi-file streams (a sample's lanes, in order) and the quality-aware
+stream of ``--variant-prep --min-base-quality`` follow the JAX package's
+Python path. The native C++ decoder of the JAX package is not ported yet.
 """
 
 from __future__ import annotations
@@ -78,6 +80,66 @@ def iter_flat_chunks(
     chunk-index checkpoints interoperate."""
     for chunk in iter_read_chunks(path, chunk_size_reads, progress=progress):
         yield _flatten_rows(chunk)
+
+
+def as_paths(path) -> list[str]:
+    """Normalize a str | list[str] input to a list of paths."""
+    return [path] if isinstance(path, (str, bytes)) else list(path)
+
+
+def _over_paths(chunks: Callable, paths, *args, **kwargs) -> Iterator:
+    """``chunks`` over a FILE LIST: files concatenate in order, so chunk
+    indices (and therefore checkpoint resume points) are global across a
+    sample's lanes."""
+    for p in as_paths(paths):
+        yield from chunks(p, *args, **kwargs)
+
+
+def iter_flat_chunks_multi(paths, chunk_size_reads: int,
+                           progress: Callable[[str], None] | None = None
+                           ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """Flat chunk stream over a file list."""
+    return _over_paths(iter_flat_chunks, paths, chunk_size_reads,
+                       progress=progress)
+
+
+def iter_read_chunks_with_quals(path: str, chunk_size_reads: int
+                                ) -> Iterator[tuple[list[bytes], list[bytes]]]:
+    """Yield (sequences, quality strings) chunks: FASTQ lines 2 and 4 of
+    each record. A chunk closes on the quality line of its last record; a
+    truncated final record gets an EMPTY quality string."""
+    seqs: list[bytes] = []
+    quals: list[bytes] = []
+    line_count = 0
+    for line in open_lines(path):
+        line_count += 1
+        m = line_count % 4
+        if m == 2:
+            seqs.append(line)
+        elif m == 0:
+            quals.append(line)
+            if len(seqs) >= chunk_size_reads:
+                yield seqs, quals
+                seqs, quals = [], []
+    if seqs:
+        while len(quals) < len(seqs):  # truncated final record
+            quals.append(b"")
+        yield seqs, quals
+
+
+def iter_flat_chunks_with_quals(path: str, chunk_size_reads: int
+                                ) -> Iterator[tuple[np.ndarray, ...]]:
+    """(seq_flat, seq_offs, qual_flat, qual_offs) chunks: the quals-aware
+    flat stream (see iter_flat_chunks for the offsets contract; a record
+    whose sequence and quality lengths differ keeps both as decoded)."""
+    for seqs, quals in iter_read_chunks_with_quals(path, chunk_size_reads):
+        yield (*_flatten_rows(seqs), *_flatten_rows(quals))
+
+
+def iter_flat_chunks_with_quals_multi(paths, chunk_size_reads: int
+                                      ) -> Iterator[tuple[np.ndarray, ...]]:
+    """Quals-aware flat chunk stream over a file list."""
+    return _over_paths(iter_flat_chunks_with_quals, paths, chunk_size_reads)
 
 
 def _flatten_rows(rows: list) -> tuple[np.ndarray, np.ndarray]:

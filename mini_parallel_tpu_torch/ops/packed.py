@@ -11,7 +11,8 @@ unpack; positions past each row's length are refilled from the pad sentinel.
 
 Layout: exceptions are (B, K) with K bucketed to a power of two; column ==
 L marks an empty slot. Packing runs in NumPy on the host; the JAX
-package's native C++ packer is not ported yet.
+package's native C++ packer is not ported yet. Per-base boolean masks
+travel 8 to a byte (pack_bits / unpack_bits_device).
 """
 
 from __future__ import annotations
@@ -143,3 +144,18 @@ def unpack_device(packed: torch.Tensor, exc_col: torch.Tensor,
     return torch.where(pos < lengths[:, None], ascii_[:, :L],
                        torch.tensor(pad_value, dtype=torch.uint8,
                                     device=packed.device))
+
+
+def pack_bits(mask: np.ndarray) -> np.ndarray:
+    """(B, L) bool -> (B, ceil(L/8)) uint8, LSB-first (8x fewer wire
+    bytes), for per-base boolean side-channels such as base-quality pass
+    masks that ride along with 2-bit packed reads."""
+    return np.packbits(mask, axis=1, bitorder="little")
+
+
+def unpack_bits_device(packed_bits: torch.Tensor, L: int) -> torch.Tensor:
+    """Device-side inverse of pack_bits: -> (B, L) bool."""
+    B, L8 = packed_bits.shape
+    shifts = torch.arange(8, dtype=torch.int32, device=packed_bits.device)
+    bits = (packed_bits[:, :, None].to(torch.int32) >> shifts) & 1
+    return bits.reshape(B, L8 * 8)[:, :L].to(torch.bool)

@@ -18,6 +18,9 @@ Layers:
   - :func:`sw_affine_numpy` / :func:`sw_affine_batch` — the same two
     layers for affine gaps (Gotoh); the affine CUDA kernel is held
     against :func:`sw_affine_batch`.
+  - :func:`sw_vs_ref_batch` — every read against one shared reference,
+    with the smallest end of the best cell (the ``--rescue`` mapper); the
+    vs-reference CUDA kernel is held against it.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from mini_parallel_tpu_torch.ops.encode import PAD_A, PAD_B, pad_batch
 MATCH_SCORE = 2  # smith_waterman.cl:5
 MISMATCH_PENALTY = -1  # smith_waterman.cl:6
 GAP_PENALTY = -2  # smith_waterman.cl:7
+# reads x reference cells that one step of the plain sw_vs_ref_batch holds
+VS_REF_BLOCK_CELLS = 1 << 26
 
 
 def sw_score_numpy(a, b, match=MATCH_SCORE, mismatch=MISMATCH_PENALTY,
@@ -95,6 +100,69 @@ def sw_score_batch(seq_a: torch.Tensor, seq_b: torch.Tensor) -> torch.Tensor:
         best = torch.maximum(best, cand)
         d1, d2 = cand, d1
     return best.amax(dim=1)
+
+
+def sw_vs_ref_batch(reads: torch.Tensor, ref: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every read against ONE shared reference (the plain version of
+    csrc/sw_vs_ref.cu; the counterpart of the JAX package's
+    ``sw_vs_ref_batch_pallas``).
+
+    reads: (B, M) uint8 padded with PAD_A; ref: (N,) uint8. Returns
+    (scores (B,) int32, ends (B,) int32): the best linear-gap SW score of
+    each read and the smallest 0-based reference index of any cell at that
+    score, -1 when the score is 0. Rows that are all pad score 0 against
+    anything and are not swept.
+
+    The sweep runs down the read's rows, each row a vector over the whole
+    reference: with X[j] = max(0, diag, up), the gap along the row makes
+    H[i, j] = max_{k <= j} (X[k] - 2 (j - k)) = cummax(X[k] + 2k) - 2j.
+    So a read costs M steps however long the reference is. The swept reads
+    go in blocks of at most VS_REF_BLOCK_CELLS reads x reference cells a
+    step, which bounds the memory against a genome-length reference.
+    """
+    B, M = reads.shape
+    N = ref.shape[0]
+    dev = reads.device
+    scores = torch.zeros(B, dtype=torch.int32, device=dev)
+    ends = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    live = torch.nonzero((reads != int(PAD_A)).any(dim=1)).flatten()
+    if live.numel() == 0 or M == 0 or N == 0:
+        return scores, ends
+    per_block = max(1, VS_REF_BLOCK_CELLS // N)
+    for k in range(0, live.numel(), per_block):
+        rows = live[k:k + per_block]
+        scores[rows], ends[rows] = _vs_ref_rows(reads[rows], ref)
+    return scores, ends
+
+
+def _vs_ref_rows(a: torch.Tensor, ref: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """sw_vs_ref_batch's sweep of reads that are not all pad."""
+    Bl, M = a.shape
+    N = ref.shape[0]
+    dev = a.device
+    ramp = 2 * torch.arange(N, dtype=torch.int64, device=dev)[None, :]
+    col = torch.arange(N, dtype=torch.int64, device=dev)[None, :]
+    prev = torch.zeros((Bl, N), dtype=torch.int64, device=dev)  # H[i-1, :]
+    zcol = torch.zeros((Bl, 1), dtype=torch.int64, device=dev)
+    best = torch.zeros(Bl, dtype=torch.int64, device=dev)
+    end = torch.zeros(Bl, dtype=torch.int64, device=dev)
+    for i in range(M):
+        s = torch.where(a[:, i:i + 1] == ref[None, :], MATCH_SCORE,
+                        MISMATCH_PENALTY)
+        diag = torch.cat([zcol, prev[:, :-1]], dim=1) + s
+        x = torch.clamp_min(torch.maximum(diag, prev + GAP_PENALTY), 0)
+        h = torch.cummax(x + ramp, dim=1).values - ramp
+        row_max = h.amax(dim=1)
+        first = torch.where(h == row_max[:, None], col, N).amin(dim=1)
+        end = torch.where(row_max > best, first,
+                          torch.where(row_max == best,
+                                      torch.minimum(end, first), end))
+        best = torch.maximum(best, row_max)
+        prev = h
+    return (best.to(torch.int32),
+            torch.where(best > 0, end, -1).to(torch.int32))
 
 
 def sw_score_pair(a: str | bytes, b: str | bytes,

@@ -136,6 +136,149 @@ def test_long_pair_host_loop_on_the_card(cuda_device):
                                           device=cuda_device))
 
 
+def _vs_ref_operands(rng, B, M, N, device):
+    """Reads cut from a reference with a repeated segment, all-pad rows
+    and all-N rows."""
+    ref = rng.choice(np.frombuffer(b"ACGT", np.uint8), N)
+    seg = min(60, N // 8)
+    ref[N // 2:N // 2 + seg] = ref[10:10 + seg]
+    rows = []
+    for k in range(B):
+        n = int(rng.integers(1, min(M, N - 1) + 1))
+        s = int(rng.integers(0, N - n))
+        rows.append([b"", b"N" * n, ref[s:s + n].tobytes(),
+                     ref[10:10 + min(n, seg)].tobytes()][k % 4])
+    reads, _ = encode.pad_batch(rows, pad_to=M, pad_value=int(encode.PAD_A))
+    return (torch.from_numpy(reads).to(device),
+            torch.from_numpy(ref).to(device))
+
+
+@pytest.mark.parametrize("B,M,N", [(256, 152, 20_000), (37, 37, 3000),
+                                   (9, 300, 4000), (3, 1, 50)])
+def test_vs_ref_kernel_matches_plain(cuda_device, B, M, N):
+    rng = np.random.default_rng(B + M + N)
+    reads, ref = _vs_ref_operands(rng, B, M, N, cuda_device)
+    launches = sw_cuda.sw_vs_ref_batch_cuda.launches
+    got = sw_cuda.sw_vs_ref_batch_best(reads, ref)
+    torch.cuda.synchronize()
+    assert sw_cuda.sw_vs_ref_batch_cuda.launches == launches + 1
+    want = sw.sw_vs_ref_batch(reads, ref)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert int(got[0][0]) == 0 and int(got[1][0]) == -1  # the all-pad row
+
+
+def _moves_operands(rng, B, M, N, device):
+    """Reads cut from their windows with substitutions and a gap, some
+    unrelated, some empty."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    rows_a, rows_b = [], []
+    for k in range(B):
+        win = rng.choice(acgt, N)
+        n = int(rng.integers(1, min(M, N - 8) + 1))
+        s = int(rng.integers(0, N - n))
+        read = win[s:s + n].copy()
+        read[rng.random(n) < 0.05] = ord("T")
+        read = np.concatenate([read[:n // 2], read[n // 2 + 3:]])
+        rows_a.append([read.tobytes(), b"", rng.choice(acgt, n).tobytes(),
+                       read.tobytes()][k % 4])
+        rows_b.append(win.tobytes())
+    a, _ = encode.pad_batch(rows_a, pad_to=M, pad_value=int(encode.PAD_A))
+    b, _ = encode.pad_batch(rows_b, pad_to=N, pad_value=int(encode.PAD_B))
+    return (torch.from_numpy(a).to(device), torch.from_numpy(b).to(device))
+
+
+@pytest.mark.parametrize("B,M,N", [(1000, 152, 184), (33, 37, 50),
+                                   (21, 300, 200), (5, 1, 9)])
+@pytest.mark.parametrize("gaps", [None, (-2, -1), (-3, 0)])
+def test_moves_kernels_match_plain(cuda_device, B, M, N, gaps):
+    """best, bd, bi, positions and the move of every cell."""
+    from mini_parallel_tpu_torch.ops import sw_traceback as tb
+    from mini_parallel_tpu_torch.ops import sw_traceback_cuda as tbc
+
+    rng = np.random.default_rng(B * M + N)
+    a, b = _moves_operands(rng, B, M, N, cuda_device)
+    if gaps is None:
+        kernel = tbc.sw_moves_batch_cuda
+        got = kernel(a, b, return_moves=True)
+        best, bd, bi, moves = tb.sw_moves_batch(a, b)
+        pos = tb._positions_walk(best, bd, bi, moves)
+    else:
+        kernel = tbc.sw_affine_moves_batch_cuda
+        got = kernel(a, b, *gaps, return_moves=True)
+        best, bd, bi, moves = tb.sw_affine_moves_batch(a, b, *gaps)
+        pos = tb._affine_walk(best, bd, bi, moves)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:4], (best, bd, bi, pos)):
+        assert torch.equal(g, w)
+    assert torch.equal(tbc.moves_to_cells(got[4], M, N),
+                       tb.plain_moves_to_cells(moves, N))
+    n0 = kernel.launches
+    routed = (tb.sw_positions_batch_best(a, b) if gaps is None
+              else tb.sw_affine_positions_batch_best(a, b, *gaps))
+    assert kernel.launches == n0 + 1
+    assert torch.equal(routed[0], best) and torch.equal(routed[1], pos)
+
+
+@pytest.mark.parametrize("kw", [dict(gapped=True, rescue=True),
+                                dict(gapped=True, gap_model="affine"),
+                                dict(min_base_quality=10)])
+def test_variant_prep_on_the_card_matches_cpu(tmp_path, cuda_device, kw):
+    """A 2-contig sample with planted variants: the card's pileup, counts,
+    candidates (and SAM bytes, gapped) equal the plain versions' on the
+    CPU; the path's kernels launched."""
+    from mini_parallel_tpu_torch.models import variant_prep as vp
+    from mini_parallel_tpu_torch.ops import sw_traceback_cuda as tbc
+
+    rng = np.random.default_rng(11)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    contigs = {"c1": rng.choice(acgt, 5000).tobytes(),
+               "c2": rng.choice(acgt, 3000).tobytes()}
+    donor = bytearray(contigs["c1"])
+    for p in range(200, 4800, 300):
+        donor[p] = ord("A") if donor[p] != ord("A") else ord("C")
+    del donor[2500:2503]
+    reads, quals = [], []
+    for k in range(400):
+        s = int(rng.integers(0, len(donor) - 150))
+        r = bytes(donor[s:s + 150])
+        if k % 9 == 0:  # kill every probed seed: only rescue maps it
+            r = bytearray(r)
+            for m in (7, 24, 41, 58, 91, 108, 125, 142):
+                r[m] = ord("G") if r[m] != ord("G") else ord("T")
+            r = bytes(r)
+        reads.append(r)
+        quals.append("".join(rng.choice(["#", "I"], 150, p=[0.05, 0.95])))
+    path = str(tmp_path / "lane.fastq.gz")
+    import gzip
+    with gzip.open(path, "wb") as f:
+        for i, (r, q) in enumerate(zip(reads, quals)):
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, r, q.encode()))
+    cfg = Config(chunk_size_reads=128)
+    counters = (sw_cuda.sw_vs_ref_batch_cuda, tbc.sw_moves_batch_cuda,
+                tbc.sw_affine_moves_batch_cuda)
+    before = [fn.launches for fn in counters]
+    out = []
+    for k, dev in enumerate((cuda_device, torch.device("cpu"))):
+        eng = vp.VariantPrepEngine(contigs, cfg, device=dev, **kw)
+        sam = str(tmp_path / f"{k}.sam") if kw.get("gapped") else None
+        res = eng.process_file(path, sam_out=sam)
+        out.append((res, open(sam, "rb").read() if sam else None))
+    (gpu, gsam), (cpu, csam) = out
+    assert np.array_equal(gpu.pileup, cpu.pileup)
+    assert (gpu.total_reads, gpu.mapped_reads) == (cpu.total_reads,
+                                                   cpu.mapped_reads)
+    assert gpu.candidates == cpu.candidates and gsam == csam
+    moved = [fn.launches - b for fn, b in zip(counters, before)]
+    chunks = 4  # 400 reads in chunks of 128
+    if kw.get("rescue"):
+        assert moved[0] == chunks and moved[1] == chunks
+        assert gpu.mapped_reads >= 390
+    elif kw.get("gapped"):
+        assert moved[2] == chunks
+    else:
+        assert moved == [0, 0, 0]
+
+
 @pytest.mark.parametrize("mode", ["sw-affine", "contiguous"])
 def test_engine_new_modes_on_the_card(tmp_path, cuda_device, mode):
     rng = np.random.default_rng(2)
