@@ -6,7 +6,7 @@
 Phases, one line or more each; any failure raises and exits non-zero:
 
 1. Card: name and power limit (nvidia-smi), torch and CUDA versions; build
-   the three kernel sources of mini_parallel_tpu_torch/csrc (one nvcc each,
+   the seven kernel sources of mini_parallel_tpu_torch/csrc (one nvcc each,
    started together) and report their build seconds and ptxas's register
    counts.
 2. SW kernel vs plain PyTorch version on the card, exact integer equality:
@@ -70,9 +70,26 @@ Phases, one line or more each; any failure raises and exits non-zero:
     checkpoint resumed through the CLI to the clean run's pileup; the
     4,000-read lane on the card == on the CPU (pileup, candidates, SAM
     bytes), linear and affine. Kernel counts as in phase 8.
+14. ``cli.main(["--variant-prep", ..., "--gapped", "--gap-model",
+    "affine", "--genotype", ...])`` on the two lanes at the defaults: lanes
+    scored and recomputed in float64, the Pair-HMM launches (one in each
+    precision), the genotyping wall and sites/s, planted SNPs called 1/1
+    (>= 95%), and, printed only, planted deletions with a 1/1 <DEL> within
+    10 bases and insertions called with their planted bases.
+15. The Pair-HMM kernel (csrc/pairhmm.cu) vs plain pairhmm_batch, float32
+    and float64: 20,000 lanes of phase 14's operand, its float32-underflowed
+    lanes, ragged lanes, rows past one stripe, haplotypes longer and shorter
+    than their reads, an all-mismatch lane and lanes straddling the float32
+    floor; |dlog10| <= 1e-4 (float32) and 1e-9 (float64), no lane -inf on
+    one side only. Times on the sample (plain once) and on the whole operand.
+16. The roofline chain (csrc/roofline.cu) == the plain chain exactly on the
+    (2048, 512) tile at CHAIN 2048; ``tools.roofline.main()``: the measured
+    int32 peak beside the estimate, and sw_score's share of both.
+17. Each kernel's share of its bound (int32 kernels: also of the measured
+    chain instruction rate).
 
 Then one JSON line of kernel results (each with its bound: see
-INT32_OPS_PER_S), the nvidia-smi line, and last
+tools/roofline.py), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits 1 without.
 """
 
@@ -148,7 +165,13 @@ def phase_card():
 
     from mini_parallel_tpu_torch import _build
     from mini_parallel_tpu_torch.device import device_info
-    from mini_parallel_tpu_torch.ops import sw_cuda, sw_long, sw_traceback_cuda
+    from mini_parallel_tpu_torch.ops import (
+        pairhmm_cuda,
+        sw_cuda,
+        sw_long,
+        sw_traceback_cuda,
+    )
+    from mini_parallel_tpu_torch.tools import roofline
 
     info = device_info()
     print(f"[1 card] {info['nvidia_smi']} | count {info['count']} | "
@@ -157,7 +180,9 @@ def phase_card():
             (sw_cuda.AFFINE_KERNEL_NAME, sw_cuda.AFFINE_KERNEL_SOURCES),
             (sw_long.KERNEL_NAME, sw_long.KERNEL_SOURCES),
             (sw_cuda.VS_REF_KERNEL_NAME, sw_cuda.VS_REF_KERNEL_SOURCES),
-            (sw_traceback_cuda.KERNEL_NAME, sw_traceback_cuda.KERNEL_SOURCES)]
+            (sw_traceback_cuda.KERNEL_NAME, sw_traceback_cuda.KERNEL_SOURCES),
+            (pairhmm_cuda.KERNEL_NAME, pairhmm_cuda.KERNEL_SOURCES),
+            (roofline.KERNEL_NAME, roofline.KERNEL_SOURCES)]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         built = list(pool.map(lambda lib: _build.build(*lib), libs))
@@ -856,18 +881,6 @@ BASE_CODE[ACGT] = [0, 1, 2, 3]
 COMPLEMENT = np.arange(256, dtype=np.uint8)
 COMPLEMENT[ACGT] = np.frombuffer(b"TGCA", np.uint8)
 
-# The bound of a kernel: the larger of its int32 operations over the card's
-# int32 instruction rate and its bytes (inputs read once, outputs written once)
-# over the HBM rate. The rate is 132 SMs x 64 int32 lanes at the H100 SXM's
-# 1,980 MHz boost clock; the operations per DP cell are estimated from each
-# kernel's source, not read from SASS.
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-HBM_BYTES_PER_S = 3.35e12
-OPS_PER_CELL = {"sw_score": 6, "sw_affine_score": 10, "sw_long": 7,
-                "sw_long_affine": 11, "sw_vs_ref": 7, "sw_moves": 15,
-                "sw_affine_moves": 24}
-
-
 def substitute(rng, bases: np.ndarray) -> np.ndarray:
     """Each ACGT byte replaced by one of the three others."""
     shift = rng.integers(1, 4, bases.shape)
@@ -878,14 +891,15 @@ def plant_variants(rng, ref: np.ndarray, n_snp: int, n_del: int, n_ins: int):
     """(donor, donor_to_ref, truth): ``ref`` with SNPs and 1-10-base
     deletions and insertions at sites >= 40 bases apart. donor_to_ref[k]
     is the reference index of donor base k (-1 inside an insertion); truth
-    is ([(pos, alt)], [deletion pos], [insertion pos]), where a deletion
-    sits at its first deleted base and an insertion at the base after it,
-    as the pileup's evidence columns count them."""
+    is ([(pos, alt)], [deletion pos], [insertion pos], {insertion pos:
+    inserted bases}), where a deletion sits at its first deleted base and
+    an insertion at the base after it, as the pileup's evidence columns
+    count them."""
     n = n_snp + n_del + n_ins
     sites = np.sort(rng.choice(np.arange(200, ref.size - 200, 40), n,
                                replace=False))
     kinds = rng.permutation(np.repeat([0, 1, 2], [n_snp, n_del, n_ins]))
-    pieces, maps, snps, dels, ins = [], [], [], [], []
+    pieces, maps, snps, dels, ins, ins_bases = [], [], [], [], [], {}
     at = 0
     for site, kind in zip(sites.tolist(), kinds.tolist()):
         pieces.append(ref[at:site])
@@ -904,10 +918,12 @@ def plant_variants(rng, ref: np.ndarray, n_snp: int, n_del: int, n_ins: int):
             pieces.append(rng.choice(ACGT, k))
             maps.append(np.full(k, -1))
             ins.append(site)
+            ins_bases[site] = pieces[-1].tobytes()
             at = site
     pieces.append(ref[at:])
     maps.append(np.arange(at, ref.size))
-    return np.concatenate(pieces), np.concatenate(maps), (snps, dels, ins)
+    return (np.concatenate(pieces), np.concatenate(maps),
+            (snps, dels, ins, ins_bases))
 
 
 def sample_reads(rng, donors: list, n: int) -> dict:
@@ -971,7 +987,9 @@ def phase_variant_fixtures(rng, tmp: str) -> dict:
                    for p, alt in t[0]},
           "indels": [(VP_CONTIGS[c][0], p, tag) for c, t in enumerate(truth)
                      for tag, sites in (("<DEL>", t[1]), ("<INS>", t[2]))
-                     for p in sites]}
+                     for p in sites],
+          "ins_bases": {(VP_CONTIGS[c][0], p): b for c, t in enumerate(truth)
+                        for p, b in t[3].items()}}
     fasta.write_fasta(fx["ref"], contigs)
     for key, n in (("L1", VP_LANE_READS), ("L2", VP_LANE_READS),
                    ("small", VP_SMALL_READS), ("exact", VP_EXACT_READS)):
@@ -1417,12 +1435,323 @@ def phase_variant_paths(fx: dict, env_path: str, tmp: str, device) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Genotyping (--genotype): csrc/pairhmm.cu in float32 and float64; the
+# roofline probe: csrc/roofline.cu
+# ---------------------------------------------------------------------------
+
+PHMM_SAMPLE = 20_000  # lanes of the real operand held against the plain version
+
+
+def vcf_records(path: str) -> list[list[str]]:
+    with open(path) as f:
+        return [ln.rstrip("\n").split("\t") for ln in f if not ln.startswith("#")]
+
+
+def phase_genotype(fx: dict, env_path: str, device) -> dict:
+    """--variant-prep --gapped --gap-model affine --genotype through
+    cli.main on the two-lane sample at the defaults (window 50, 64 reads a
+    site): lanes scored and recomputed in float64, both Pair-HMM launch
+    counts (set to 0 just before, read just after), the genotyping wall
+    and sites/s, the share of planted SNPs called 1/1 (held >= 95%: the
+    donor is haploid), and, printed only, the share of planted deletions
+    with a 1/1 <DEL> call within 10 bases and of planted insertions called
+    with their planted bases. Returns the launches and the Pair-HMM
+    operand of the run (captured on its way into the batch)."""
+    import torch
+
+    from mini_parallel_tpu_torch.models import variant_prep as vp
+    from mini_parallel_tpu_torch.ops import pairhmm_cuda
+
+    counters = {"pairhmm": pairhmm_cuda.pairhmm_batch_cuda,
+                "pairhmm_f64": pairhmm_cuda.pairhmm_f64_batch_cuda}
+    captured, walls = [], []
+    batch, genotype = vp.pairhmm_log10_padded, vp.VariantPrepEngine.genotype_candidates
+
+    def capture(*args):
+        captured.append(args)
+        return batch(*args)
+
+    def timed(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = genotype(self, *args, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    vcf = os.path.join(os.path.dirname(fx["ref"]), "vp_genotype.vcf")
+    vp.pairhmm_log10_padded, vp.VariantPrepEngine.genotype_candidates = (
+        capture, timed)
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        lines, wall = cli_lines([
+            "--variant-prep", f"{fx['L1']},{fx['L2']}", "--reference",
+            fx["ref"], "--env", env_path, "--gapped", "--gap-model", "affine",
+            "--genotype", "--vcf-out", vcf])
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        vp.pairhmm_log10_padded, vp.VariantPrepEngine.genotype_candidates = (
+            batch, genotype)
+    lanes = [ln for ln in lines if "Pair-HMM lanes" in ln]
+    check(len(lanes) == 1 and len(captured) == 1 and len(walls) == 1,
+          f"one Pair-HMM batch expected: {lanes}, {len(captured)} captured")
+    recs = vcf_records(vcf)
+    gts = {(r[0], int(r[1]) - 1, r[4]): r[9].split(":")[0] for r in recs}
+    genotyped = sum(gt != "./." for gt in gts.values())
+    hom = {k for k, gt in gts.items() if gt == "1/1"}
+    snp = len(fx["snps"] & hom) / len(fx["snps"])
+    dels = [d for d in fx["indels"] if d[2] == "<DEL>"]
+    del_share = indel_recall(hom, dels)
+    # an inferred insertion is called at its anchor, one base before
+    alleles = {(k[0], k[1]): k[2][1:] for k, gt in gts.items()
+               if gt != "./." and not k[2].startswith("<") and len(k[2]) > 1}
+    ins_ok = sum(alleles.get((contig, p - 1)) == bases.decode()
+                 for (contig, p), bases in fx["ins_bases"].items())
+    ins_share = ins_ok / max(len(fx["ins_bases"]), 1)
+    print(f"[14 genotype] {line_value(lines, 'Reads:')} | "
+          f"{lanes[0].strip()} | launches {launches} | genotyping "
+          f"{walls[0]:.2f} s of a {wall:.2f} s run, {genotyped} sites "
+          f"genotyped = {genotyped / walls[0]:.1f} sites/s | planted SNPs "
+          f"called 1/1 {100 * snp:.2f} % | planted deletions with a 1/1 "
+          f"<DEL> within 10 bases {100 * del_share:.2f} % | planted "
+          f"insertions called with their bases {100 * ins_share:.2f} %",
+          flush=True)
+    check(snp >= 0.95, f"planted SNPs called 1/1: {snp:.4f} < 0.95")
+    check(launches["pairhmm"] == 1 and launches["pairhmm_f64"] == 1,
+          f"Pair-HMM launches {launches}, not one in each precision")
+    return {"launches": launches, "operand": captured[0]}
+
+
+def phmm_synthetic(rng, device) -> dict:
+    """Pair-HMM cases beyond the real operand: ragged lanes with empty
+    reads and haplotypes, rows past one stripe (M = 300), a haplotype
+    longer than its read and a read longer than its haplotype, the
+    all-mismatch lane of tests/test_pairhmm.py, and 150 bp Q30 reads slid
+    base by base across 101-base windows, whose values straddle the
+    float32 floor. Each is (reads, err64, haps, read_lens, hap_lens)."""
+    import torch
+
+    from mini_parallel_tpu_torch.ops import encode, pairhmm
+
+    def lanes(reads, haps, quals, M, N):
+        arr_r, la = encode.pad_batch(reads, pad_to=M, pad_value=int(encode.PAD_A))
+        arr_h, lb = encode.pad_batch(haps, pad_to=N, pad_value=int(encode.PAD_B))
+        q = np.zeros((len(reads), M))
+        for i, x in enumerate(quals):
+            q[i, :len(x)] = x
+        err = torch.where(torch.arange(M)[None, :] < torch.from_numpy(la)[:, None],
+                          pairhmm.phred_error(torch.from_numpy(q)), 0)
+        return tuple(t.to(device) for t in (
+            torch.from_numpy(arr_r), err, torch.from_numpy(arr_h),
+            torch.from_numpy(la), torch.from_numpy(lb)))
+
+    def cut(B, M, N):
+        reads, haps, quals = [], [], []
+        for k in range(B):
+            hap = rng.choice(ACGT, int(rng.integers(1, N + 1)))
+            m = int(rng.integers(1, M + 1))
+            s = int(rng.integers(0, max(hap.size - m, 0) + 1))
+            read = np.concatenate([hap[s:s + m], rng.choice(ACGT, m)])[:m]
+            read[rng.random(m) < 0.03] = ord("A")
+            reads.append([read.tobytes(), b"", rng.choice(ACGT, m).tobytes(),
+                          read.tobytes()][k % 4])
+            haps.append(hap.tobytes() if k % 7 != 6 else b"")
+            quals.append(rng.integers(5, 41, m))
+        return lanes(reads, haps, quals, M, N)
+
+    hap = rng.choice(ACGT, 140)
+    mismatch = COMPLEMENT[hap[:120]]  # every base mismatched
+    src = rng.choice(ACGT, 400)
+    slid = [src[25 + o:175 + o].tobytes() for o in range(150)]
+    return {
+        "ragged B=37 M=60 N=90": cut(37, 60, 90),
+        "rows past one stripe B=21 M=300 N=120": cut(21, 300, 120),
+        "hap longer than read B=64 M=40 N=200": cut(64, 40, 200),
+        "read longer than hap B=64 M=152 N=60": cut(64, 152, 60),
+        "all-mismatch 120 x 140, Q40": lanes([mismatch.tobytes()],
+                                             [hap.tobytes()],
+                                             [np.full(120, 40)], 120, 140),
+        "150 bp Q30 slid across 101 bases (straddles the float32 floor)":
+            lanes(slid, [src[150:251].tobytes()] * 150,
+                  [np.full(150, 30)] * 150, 152, 101),
+    }
+
+
+def phmm_cells_bytes(operand, f64: bool) -> tuple[float, float]:
+    """The DP cells these lanes need (sum of read x hap lengths) and the
+    bytes the function must move (reads, errors, haplotypes, lengths in;
+    one value out per lane)."""
+    import torch
+
+    reads, err, haps, la, lb = operand
+    B, M = reads.shape
+    width = 8 if f64 else 4
+    cells = float((la.to(torch.int64) * lb.to(torch.int64)).sum())
+    return cells, float(B * M * (1 + width) + B * haps.shape[1] + 8 * B
+                        + width * B)
+
+
+def phase_pairhmm_compare(rng, operand, device) -> dict:
+    """csrc/pairhmm.cu vs the plain pairhmm_batch on the card, both
+    precisions: PHMM_SAMPLE lanes drawn from the genotype run's operand, its
+    float32-underflowed lanes (float64), and phmm_synthetic's cases. Holds
+    |Δlog10| <= 1e-4 (float32) and 1e-9 (float64) on lanes finite on both
+    sides and no lane -inf on one side only. Times each kernel and its
+    plain version on the sample, and the kernels on the whole operand."""
+    import torch
+
+    from mini_parallel_tpu_torch.ops import pairhmm, pairhmm_cuda
+
+    kernels = {False: pairhmm_cuda.pairhmm_batch_cuda,
+               True: pairhmm_cuda.pairhmm_f64_batch_cuda}
+
+    def run(lanes, f64):
+        reads, err, haps, la, lb = lanes
+        err = err if f64 else err.to(torch.float32)
+        got = kernels[f64](reads, err, haps, la, lb)
+        want = pairhmm.pairhmm_batch(reads, err, haps, la, lb,
+                                     dtype=err.dtype)
+        torch.cuda.synchronize()
+        return got, want
+
+    B = operand[0].shape[0]
+    pick = torch.from_numpy(np.sort(rng.choice(B, min(PHMM_SAMPLE, B),
+                                               replace=False))).to(device)
+    sample = tuple(t[pick] for t in operand)
+    f32_all, _ = run(operand, False)
+    under = torch.nonzero(torch.isinf(f32_all) & (operand[3] > 0)
+                          & (operand[4] > 0))[:, 0]
+    cases = {f"real genotype operand, {pick.numel()} of {B} lanes": sample,
+             f"real float32-underflowed lanes ({under.numel()} of {B})":
+                 tuple(t[under[:PHMM_SAMPLE]] for t in operand),
+             **phmm_synthetic(rng, device)}
+    out = {False: {"max_err": 0.0}, True: {"max_err": 0.0}}
+    for name, lanes in cases.items():
+        for f64 in (False, True):
+            if f64 is False and name.startswith("real float32"):
+                continue
+            got, want = run(lanes, f64)
+            one_sided = int((torch.isinf(got) != torch.isinf(want)).sum())
+            fin = torch.isfinite(got) & torch.isfinite(want)
+            err = float((got[fin].double() - want[fin].double()).abs().max()) \
+                if bool(fin.any()) else 0.0
+            out[f64]["max_err"] = max(out[f64]["max_err"], err)
+            tol = 1e-9 if f64 else 1e-4
+            print(f"[15 pairhmm] {'float64' if f64 else 'float32'} {name}: "
+                  f"B={lanes[0].shape[0]} M={lanes[0].shape[1]} "
+                  f"N={lanes[2].shape[1]} max |dlog10| {err:.3g} (<= {tol}), "
+                  f"-inf {int(torch.isinf(got).sum())}, one-sided -inf "
+                  f"{one_sided}", flush=True)
+            check(err <= tol and one_sided == 0,
+                  f"pairhmm kernel != plain ({'f64' if f64 else 'f32'}) on {name}")
+    for f64 in (False, True):
+        lanes = tuple(sample)
+        err = lanes[1] if f64 else lanes[1].to(torch.float32)
+        args = (lanes[0], err, *lanes[2:])
+        label = "float64" if f64 else "float32"
+        cells, nbytes = phmm_cells_bytes(lanes, f64)
+        ms = report_time(15, f"pairhmm {label} kernel, the {pick.numel()}-lane "
+                         "sample", time_samples(lambda: kernels[f64](*args), 5),
+                         cells)
+        plain_ms, _ = time_once(lambda: pairhmm.pairhmm_batch(
+            *args, dtype=err.dtype))
+        print(f"[15 time] pairhmm {label} plain, the same sample, once: "
+              f"{plain_ms:.1f} ms ({cells / plain_ms / 1e6:.2f} GCUPS)",
+              flush=True)
+        out[f64].update(ms=ms, plain_ms=plain_ms, cells=cells, bytes=nbytes)
+    full = (operand[0], operand[1].to(torch.float32), *operand[2:])
+    report_time(15, f"pairhmm float32 kernel, the whole operand ({B} lanes)",
+                time_samples(lambda: kernels[False](*full), repeats=3),
+                phmm_cells_bytes(operand, False)[0])
+    redo = tuple(t[under] for t in operand)
+    report_time(15, f"pairhmm float64 kernel, the operand's {under.numel()} "
+                "underflowed lanes", time_samples(
+                    lambda: kernels[True](*redo), repeats=3),
+                phmm_cells_bytes(redo, True)[0])
+    return out
+
+
+def phase_roofline(device) -> dict:
+    """csrc/roofline.cu == the plain chain exactly on the (2048, 512) tile
+    at the full CHAIN; then the roofline tool's main() as a user runs it
+    (launch counts set to 0 just before and read just after): the measured
+    int32 peak beside the estimate, and sw_score's share of both."""
+    import torch
+
+    from mini_parallel_tpu_torch.ops import sw_cuda
+    from mini_parallel_tpu_torch.tools import roofline
+
+    a, b = roofline.chain_operands(device)
+    got = roofline.roofline_chain_cuda(a, b, roofline.CHAIN)
+    plain_ms, want = time_once(lambda: roofline.roofline_chain(a, b,
+                                                               roofline.CHAIN))
+    same = bool(torch.equal(got, want))
+    err = int((got.long() - want.long()).abs().max())
+    print(f"[16 roofline] chain tile {roofline.TILE} x CHAIN {roofline.CHAIN}: "
+          f"kernel == plain {same} (max_abs_err {err}); plain once "
+          f"{plain_ms:.1f} ms", flush=True)
+    check(same, "the roofline chain kernel != the plain chain")
+    steps = float(roofline.TILE[0] * roofline.TILE[1]) * roofline.CHAIN
+    ms = statistics.median(time_samples(
+        lambda: roofline.roofline_chain_cuda(a, b, roofline.CHAIN), 5))
+    roofline.roofline_chain_cuda.launches = 0
+    sw_cuda.sw_score_batch_cuda.launches = 0
+    lines: list[str] = []
+    check(roofline.main(echo=lines.append) == 0, f"roofline: {lines}")
+    torch.cuda.synchronize()
+    launches = roofline.roofline_chain_cuda.launches
+    result = json.loads(lines[-1])
+    peak = result["extra"]["peak_chain_int32_ops_per_s"] * 1e9
+    instr = result["extra"]["peak_chain_int32_instructions_per_s"] * 1e9
+    print(f"[16 roofline] main(): {lines[-1]}", flush=True)
+    sw_ops = result["extra"]["sw_vector_ops_per_s_gops"] * 1e9
+    est = roofline.INT32_OPS_PER_S
+    print(f"[16 roofline] measured int32 peak {peak / 1e12:.2f} T ops/s "
+          f"({roofline.CHAIN_OPS_PER_STEP} a DPX step) = {instr / 1e12:.2f} T "
+          f"instructions/s, {100 * instr / est:.1f} % of the estimated "
+          f"{est / 1e12:.2f} T; sw_score at {sw_ops / 1e12:.2f} T "
+          f"instructions/s: {100 * result['value']:.1f} % of the measured "
+          f"and {100 * sw_ops / est:.1f} % of the estimated instruction rate | "
+          f"launches chain {launches}, sw_score "
+          f"{sw_cuda.sw_score_batch_cuda.launches}", flush=True)
+    check(launches > 0, "the roofline tool launched no chain kernel")
+    return {"launches": launches, "ms": ms, "plain_ms": plain_ms,
+            "steps": steps,
+            "bytes": 3.0 * 4 * roofline.TILE[0] * roofline.TILE[1],
+            "peak_instr": instr}
+
+
+def report_shares(kernels: list[dict], peak_instr: float) -> None:
+    """Each kernel's time against its bound; for the int32 kernels also
+    against the measured ceiling: the chain's instruction rate in place of
+    the estimated int32 rate."""
+    from mini_parallel_tpu_torch.tools.roofline import INT32_OPS_PER_S
+
+    for k in kernels:
+        share = k["bound_ms"] / k["ms"]
+        line = (f"[17 shares] {k['name']}: {k['ms']:.4f} ms, {100 * share:.1f}"
+                f" % of its bound ({k['bound_by']})")
+        if not k["name"].startswith("pairhmm") and k["bound_by"] == "operations":
+            line += (f", {100 * share * INT32_OPS_PER_S / peak_instr:.1f} % of "
+                     "the measured int32 instruction rate")
+        print(line, flush=True)
+
+
 def kernel_entry(name: str, replaces: str, source: str, launches: int,
-                 max_err: int, ms: float, plain_ms: float, cells: float,
-                 nbytes: float) -> dict:
-    """One kernel's line of the JSON result, with its bound (see
-    INT32_OPS_PER_S) computed from this run's cells and bytes."""
-    ops_ms = cells * OPS_PER_CELL[name] / INT32_OPS_PER_S * 1e3
+                 max_err, ms: float, plain_ms: float, cells: float,
+                 nbytes: float, rate: float | None = None) -> dict:
+    """One kernel's line of the JSON result, with its bound computed from
+    this run's cells and bytes: the larger of cells x OPS_PER_CELL over
+    ``rate`` (the int32 rate unless given) and bytes over the HBM rate."""
+    from mini_parallel_tpu_torch.tools.roofline import (
+        HBM_BYTES_PER_S,
+        INT32_OPS_PER_S,
+        OPS_PER_CELL,
+    )
+
+    ops_ms = cells * OPS_PER_CELL[name] / (rate or INT32_OPS_PER_S) * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {"name": name, "route": "cuda",
             "source": f"mini_parallel_tpu_torch/csrc/{source}",
@@ -1442,6 +1771,7 @@ def main() -> int:
         return 1
     from mini_parallel_tpu_torch.device import require_cuda
     from mini_parallel_tpu_torch.models.variant_prep import VariantPrepEngine
+    from mini_parallel_tpu_torch.tools import roofline
     from mini_parallel_tpu_torch.utils.config import Config
 
     device = require_cuda()
@@ -1466,9 +1796,12 @@ def main() -> int:
                                                  cfg.gap_extend), device)
         del eng, chunk
         vp_launches = phase_variant_paths(fx, env_path, tmp, device)
+        genotype = phase_genotype(fx, env_path, device)
+        phmm = phase_pairhmm_compare(rng, genotype.pop("operand"), device)
+    chain = phase_roofline(device)
     main_cells = float(MAIN_B) * MAIN_LEN * MAIN_LEN
     main_bytes = float(2 * MAIN_B * MAIN_PAD + 4 * MAIN_B)
-    print(json.dumps({"kernels": [
+    kernels = [
         kernel_entry("sw_score", "ops/sw_pallas.py:106", "sw_score.cu",
                      launches, max_err, kernel_ms, plain_ms, main_cells,
                      main_bytes),
@@ -1491,7 +1824,18 @@ def main() -> int:
                        moves[key]["plain_ms"], moves[key]["cells"],
                        moves[key]["bytes"])
           for key, line in (("sw_moves", 148), ("sw_affine_moves", 800))),
-    ]}))
+        *(kernel_entry(key, "ops/pairhmm_pallas.py:49", "pairhmm.cu",
+                       genotype["launches"][key], phmm[f64]["max_err"],
+                       phmm[f64]["ms"], phmm[f64]["plain_ms"],
+                       phmm[f64]["cells"], phmm[f64]["bytes"], rate)
+          for key, f64, rate in (("pairhmm", False, roofline.FP32_OPS_PER_S),
+                                 ("pairhmm_f64", True, roofline.FP64_OPS_PER_S))),
+        kernel_entry("roofline_chain", "tools/roofline.py:72", "roofline.cu",
+                     chain["launches"], 0, chain["ms"], chain["plain_ms"],
+                     chain["steps"], chain["bytes"]),
+    ]
+    report_shares(kernels, chain["peak_instr"])
+    print(json.dumps({"kernels": kernels}))
     print(info["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

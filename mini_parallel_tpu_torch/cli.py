@@ -4,18 +4,18 @@ The flag surface is the JAX package's (itself ``smith_waterman/src/main.rs:11-46
 plus its additions). Ported: ``--full-wgs``, ``--test-wgs``, direct
 ``-1/-2`` pairs of any length, ``--files`` pair mode, ``--complementarity``,
 ``--long-align`` and ``--variant-prep`` (with ``--gapped``, ``--gap-model``,
-``--rescue``, ``--min-base-quality``, ``--vcf-out``, ``--sam-out`` and
-``--prep-checkpoint``), in every ``--mode`` (kadane, sw, sw-affine,
-contiguous), with ``--allow-cpu``, ``--env``, ``--chunk-size`` and
-``--retries``. ``--kmer``, ``--genotype``, ``--profile`` and
-``MPT_MESH_SHAPE`` are accepted and exit 2 with "not yet ported".
+``--rescue``, ``--min-base-quality``, ``--genotype``, ``--vcf-out``,
+``--sam-out`` and ``--prep-checkpoint``), in every ``--mode`` (kadane, sw,
+sw-affine, contiguous), with ``--allow-cpu``, ``--env``, ``--chunk-size``
+and ``--retries``. ``--kmer``, ``--profile`` and ``MPT_MESH_SHAPE`` are
+accepted and exit 2 with "not yet ported".
 
     python -m mini_parallel_tpu_torch --full-wgs --mode sw
     python -m mini_parallel_tpu_torch --files -1 R1.fastq.gz -2 R2.fastq.gz
     python -m mini_parallel_tpu_torch --complementarity -1 R1.fastq.gz -2 R2.fastq.gz
     python -m mini_parallel_tpu_torch --long-align -1 a.fa -2 b.fa --mode sw-affine
     python -m mini_parallel_tpu_torch --variant-prep L1.fastq.gz,L2.fastq.gz \
-        --reference ref.fa --gapped --gap-model affine --vcf-out calls.vcf
+        --reference ref.fa --gapped --gap-model affine --genotype --vcf-out calls.vcf
 
 A CUDA device is mandatory, as the reference's GPU was (main.rs:76-79),
 unless ``--allow-cpu`` asks for the CPU explicitly.
@@ -33,7 +33,6 @@ from mini_parallel_tpu_torch.utils import config as config_mod
 # mode flags of the JAX package that this package does not run yet
 _NOT_PORTED = (
     ("kmer", "--kmer"),
-    ("genotype", "--genotype"),
     ("profile", "--profile"),
 )
 
@@ -99,8 +98,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rescue", action="store_true",
                    help="SW rescue for --variant-prep")
     p.add_argument("--genotype", action="store_true",
-                   help="Pair-HMM genotyping for --variant-prep (not yet "
-                   "ported)")
+                   help="Pair-HMM diploid genotype likelihoods (GT/GQ/PL) "
+                   "for the --variant-prep candidates")
     p.add_argument("--gt-window", type=int, default=50, metavar="W",
                    help="haplotype half-window for --genotype")
     p.add_argument("--gt-max-reads", type=int, default=64, metavar="N",
@@ -244,6 +243,11 @@ def _variant_prep(args, cfg, device, echo) -> int:
             paths if len(paths) > 1 else paths[0], progress=echo,
             sam_out=args.sam_out, checkpoint_path=args.prep_checkpoint,
             checkpoint_every=args.prep_checkpoint_every)
+        if args.genotype:
+            res = veng.genotype_candidates(
+                paths if len(paths) > 1 else paths[0], res,
+                window=args.gt_window, max_reads_per_site=args.gt_max_reads,
+                progress=echo)
     except (OSError, IOError, ValueError) as e:
         echo(f"ERROR: {e}")
         return 1
@@ -252,8 +256,9 @@ def _variant_prep(args, cfg, device, echo) -> int:
          f"({100*res.mapping_rate:.1f} %)")
     echo(f"Candidate variant sites: {len(res.candidates)}")
     for c in res.candidates[:10]:
+        extra = f" GT={c.gt} GQ={c.gq}" if c.gt else ""
         echo(f"  {c.contig}:{c.pos+1}: {c.ref_base}->{c.alt_base} "
-             f"depth={c.depth} alt={c.alt_count}")
+             f"depth={c.depth} alt={c.alt_count}{extra}")
     if args.vcf_out:
         write_candidates_vcf(args.vcf_out, res)
         echo(f"Candidates written to {args.vcf_out}")

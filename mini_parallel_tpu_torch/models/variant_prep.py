@@ -22,8 +22,16 @@ The counterpart of mini_parallel_tpu/models/variant_prep.py on one device.
   fraction >= threshold, extracted on the host as VCF-like records; SAM
   records come from the same traceback positions.
 
+- **genotyping** (:meth:`VariantPrepEngine.genotype_candidates`): a second
+  pass maps the reads again, assigns them to the candidate sites they
+  cover, and scores every (read, ref haplotype) and (read, alt haplotype)
+  pair with one batched Pair-HMM call (``csrc/pairhmm.cu`` on the card,
+  float32, then float64 on the lanes that underflow) for diploid GL, GT
+  and GQ; insertion alleles are inferred from the covering reads'
+  traceback.
+
 Mapped counts stay on the device and are read once per checkpoint and once
-at the end. ``--genotype`` (Pair-HMM) and device meshes are not ported yet.
+at the end. Device meshes are not ported yet.
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ from mini_parallel_tpu_torch.device import require_cuda
 from mini_parallel_tpu_torch.io import fastq
 from mini_parallel_tpu_torch.ops import encode
 from mini_parallel_tpu_torch.ops import packed as packedmod
+from mini_parallel_tpu_torch.ops import pairhmm
+from mini_parallel_tpu_torch.ops.pairhmm import pairhmm_log10_padded
 from mini_parallel_tpu_torch.ops.sw_cuda import sw_vs_ref_batch_best
 from mini_parallel_tpu_torch.ops.sw_traceback import (
     sw_affine_positions_batch_best,
@@ -89,6 +99,11 @@ class Candidate:
     depth: int
     alt_count: int
     contig: str = "ref"
+    # Pair-HMM genotyping (genotype_candidates): (RR, RA, AA) log10
+    # likelihoods, the argmax genotype string, and its Phred-scaled quality
+    gl: tuple | None = None
+    gt: str | None = None
+    gq: int | None = None
 
     @property
     def alt_fraction(self) -> float:
@@ -827,6 +842,274 @@ class VariantPrepEngine:
         res.seconds = time.perf_counter() - t0
         return res
 
+    # -- genotyping ----------------------------------------------------------
+
+    def genotype_candidates(self, path, res: VariantPrepResult,
+                            window: int = 50, max_reads_per_site: int = 64,
+                            progress=None) -> VariantPrepResult:
+        """Diploid genotype likelihoods for the candidates by the Pair-HMM
+        forward: the likelihood model behind GATK/DeepVariant-style callers.
+
+        A second streaming pass over the FASTQ (a path or a list of lanes)
+        maps the reads again with the same seed mapper (and ``rescue``),
+        assigns each read to the candidate sites it covers (at most
+        ``max_reads_per_site`` per site, in stream order), and ONE batched
+        Pair-HMM call scores every (read, ref window) and (read, alt window)
+        pair. Reads mapped on the reverse strand are reverse-complemented and
+        their qualities reversed; a read whose quality string does not match
+        its length is scored at Q30. Windows reach ``window`` bases either
+        side of the site, clipped to its contig. Sets Candidate.gl = (RR,
+        RA, AA) log10, .gt ('0/0' | '0/1' | '1/1') and .gq (Phred).
+
+        SNPs, <DEL> and <INS> candidates are genotyped; a deletion drops the
+        site's base from the alt haplotype. An insertion's SEQUENCE is first
+        inferred from the covering reads' traceback (the run of unaligned
+        bases between reference positions site-1 and site, majority-voted,
+        >= 2 supporting reads); the candidate is then rewritten to the VCF
+        anchor convention (POS = site-1, REF = anchor base, ALT = anchor +
+        inserted) and genotyped like any other allele. Failures stay
+        symbolic <INS> with gl=None. Use gap_model="affine" for canonical
+        insertion alleles: linear-gap tracebacks may split a multi-base
+        insertion into score-equivalent adjacent single-base events.
+
+        The operands are built by gathers: reads are kept once per chunk
+        (only those assigned to a site), haplotype windows are cut from the
+        reference in one indexed read; only an <INS> allele is spliced per
+        site. The same contract as the JAX package's method."""
+        sites = [c for c in res.candidates
+                 if c.gl is None
+                 and (len(c.alt_base) == 1 or c.alt_base in ("<DEL>", "<INS>"))]
+        if not sites:
+            return res
+        off_by_name = dict(zip(self.contig_names,
+                               (int(x) for x in self.contig_offsets)))
+        abs_pos = np.array([off_by_name[c.contig] + c.pos for c in sites],
+                           np.int64)
+        reads = self._assign_reads(path, abs_pos, max_reads_per_site,
+                                   progress)
+        ins_seqs = self._infer_insertions(sites, reads, abs_pos)
+        lanes = self._genotype_lanes(sites, reads, abs_pos, ins_seqs, window)
+        if lanes is None:
+            return res
+        live, operands = lanes
+        lls, n_f64 = pairhmm_log10_padded(*operands)
+        if progress:
+            progress(f"  genotyping: {lls.numel()} Pair-HMM lanes, {n_f64} "
+                     "recomputed in float64")
+        lls = lls.cpu().numpy()
+        ends = 2 * np.cumsum(reads["per_site"][live])
+        for s_i, block in zip(live.tolist(), np.split(lls, ends[:-1])):
+            rr, ra, aa = pairhmm.genotype_likelihoods(block[0::2], block[1::2])
+            c = sites[s_i]
+            c.gl = (rr, ra, aa)
+            best = max(rr, ra, aa)
+            pl = [-10.0 * (g - best) for g in (rr, ra, aa)]
+            gt_i = int(np.argmin(pl))
+            c.gt = ("0/0", "0/1", "1/1")[gt_i]
+            c.gq = int(round(min(
+                min(p for i2, p in enumerate(pl) if i2 != gt_i), 99.0)))
+        # <INS> rewrites moved pos back by one; restore the VCF sort order
+        rank = {n: i for i, n in enumerate(self.contig_names)}
+        res.candidates.sort(key=lambda c: (rank.get(c.contig, len(rank)),
+                                           c.pos))
+        return res
+
+    def _assign_reads(self, path, abs_pos: np.ndarray, cap: int,
+                      progress) -> dict:
+        """The genotyping pass over the reads: map each chunk, find the
+        sites each mapped read covers (one ``searchsorted`` pair per chunk),
+        and keep a read for a site while the site has fewer than ``cap``
+        reads, in stream order. Returns the kept reads, oriented (flipped
+        reads reverse-complemented, their qualities reversed, Q30 where the
+        quality string's length differs), as a table: ``seqs`` (R, L) ASCII
+        padded with PAD_A, ``quals`` (R, L) Phred+33, ``lens``, ``starts``;
+        and the assignments: ``rows`` and ``sites`` sorted by site, each
+        site's rows in stream order, and ``per_site`` counts."""
+        idx = self.index
+        dev = self.device
+        S = abs_pos.size
+        order = np.argsort(abs_pos, kind="stable")
+        abs_sorted = abs_pos[order]
+        counts = np.zeros(S, np.int64)
+        chunks, pair_sites, pair_rows = [], [], []
+        n_rows = 0
+        stream = fastq.iter_flat_chunks_with_quals_multi(
+            fastq.as_paths(path), self.cfg.chunk_size_reads)
+        with fastq.prefetch(stream) as batches:
+            for flat, offs, qflat, qoffs in batches:
+                arr, lens, _ = self._prep_batch_flat(flat, offs)
+                # the mapped codes are dropped: the reads are oriented below
+                _, *mapping = _map_codes_batch(
+                    encode.ascii_to_code(torch.from_numpy(arr).to(dev)),
+                    torch.from_numpy(np.asarray(lens, np.int32)).to(dev),
+                    idx.sorted_keys, idx.sorted_pos, idx.ref_ascii_dev,
+                    SEED_K, self.rescue, self.rescue_min_frac)
+                starts, mapped, flipped = (t.cpu().numpy() for t in mapping)
+                lens_v = np.diff(offs)
+                lo = np.searchsorted(abs_sorted, starts, "left")
+                hi = np.searchsorted(abs_sorted, starts + lens_v, "left")
+                n_cov = np.where(mapped & (lens_v > 0), hi - lo, 0).clip(0)
+                read_of = np.repeat(np.arange(len(lens_v)), n_cov)
+                site_of = order[lo[read_of] + _ranks(n_cov)]
+                # each site takes its first reads in stream order
+                by_site = np.argsort(site_of, kind="stable")
+                rank = np.empty_like(by_site)
+                rank[by_site] = (np.arange(by_site.size) - np.searchsorted(
+                    site_of[by_site], site_of[by_site], "left"))
+                keep = counts[site_of] + rank < cap
+                counts += np.bincount(site_of[keep], minlength=S)
+                rows, inv = np.unique(read_of[keep], return_inverse=True)
+                if rows.size:
+                    chunks.append(_oriented_reads(arr, lens, qflat, qoffs,
+                                                  starts, flipped, rows))
+                    pair_sites.append(site_of[keep])
+                    pair_rows.append(n_rows + inv)
+                    n_rows += rows.size
+                if progress:
+                    progress(f"  genotyping: {int(counts.sum())} read-site "
+                             f"assignments")
+        L = max((c[0].shape[1] for c in chunks), default=1)
+        sites = np.concatenate(pair_sites) if pair_sites else np.zeros(0, int)
+        by_site = np.argsort(sites, kind="stable")
+        return {
+            "seqs": np.concatenate([_widen(c[0], L, int(encode.PAD_A))
+                                    for c in chunks]) if chunks
+            else np.zeros((0, L), np.uint8),
+            "quals": np.concatenate([_widen(c[1], L, 0) for c in chunks])
+            if chunks else np.zeros((0, L), np.uint8),
+            "lens": np.concatenate([c[2] for c in chunks]) if chunks
+            else np.zeros(0, np.int32),
+            "starts": np.concatenate([c[3] for c in chunks]) if chunks
+            else np.zeros(0, np.int64),
+            "rows": (np.concatenate(pair_rows)[by_site] if pair_rows
+                     else np.zeros(0, np.int64)),
+            "sites": sites[by_site],
+            "per_site": counts,
+        }
+
+    def _infer_insertions(self, sites: list, reads: dict,
+                          abs_pos: np.ndarray) -> dict:
+        """For <INS> candidates, infer the inserted sequence from the gapped
+        traceback of the covering reads (``_traceback_positions``, the
+        moves kernel's walk on the card): bases at reference position -1
+        anchored between positions site-1 and site (the pileup records the
+        insertion evidence at anchor+1). Majority vote across the site's
+        reads, first seen on ties, >= 2 supporting -> {site index: bytes}."""
+        from collections import Counter
+
+        ins_idx = [s_i for s_i, c in enumerate(sites)
+                   if c.alt_base == "<INS>" and reads["per_site"][s_i]]
+        if not ins_idx:
+            return {}
+        chosen = np.isin(reads["sites"], ins_idx)
+        rows, owner = reads["rows"][chosen], reads["sites"][chosen]
+        lens = reads["lens"][rows]
+        pad = self._pad_for(int(lens.max()))
+        seqs = _widen(reads["seqs"][rows], pad, int(encode.PAD_A))[:, :pad]
+        dev = self.device
+        G = len(self.index.ref_codes)
+        lens_t = torch.from_numpy(lens).to(dev)
+        positions = _traceback_positions(
+            encode.ascii_to_code(torch.from_numpy(seqs).to(dev)), lens_t,
+            torch.from_numpy(reads["starts"][rows].astype(np.int32)).to(dev),
+            torch.ones(rows.size, dtype=torch.bool, device=dev),
+            self.index.ref_ascii_dev, G, pad + 2 * self.window_margin,
+            self.window_margin, self.gap_model, self.cfg.gap_open,
+            self.cfg.gap_extend).cpu().numpy()
+        s_abs = abs_pos[owner][:, None]
+        col = np.arange(pad)[None, :]
+        hit = positions == s_abs - 1  # the left anchor
+        k0 = hit.argmax(axis=1) + 1
+        # the insertion runs from k0 to the first aligned base (or the end)
+        stop = (positions != -1) | (col >= lens[:, None])
+        k1 = np.where(stop & (col >= k0[:, None]), col, pad).min(axis=1)
+        at = np.take_along_axis(positions, np.minimum(k1, pad - 1)[:, None],
+                                axis=1)[:, 0]
+        ok = (hit.sum(axis=1) == 1) & (k1 > k0) & (k1 < lens) & (at == s_abs[:, 0])
+        votes: dict = {}
+        for r in np.flatnonzero(ok).tolist():
+            votes.setdefault(int(owner[r]), Counter())[
+                seqs[r, k0[r]:k1[r]].tobytes()] += 1
+        out = {}
+        for s_i, ctr in votes.items():
+            seq, cnt = ctr.most_common(1)[0]
+            if cnt >= 2:
+                out[s_i] = seq
+        return out
+
+    def _genotype_lanes(self, sites: list, reads: dict, abs_pos: np.ndarray,
+                        ins_seqs: dict, window: int):
+        """The Pair-HMM operands: for each genotyped site in order, each of
+        its reads against the ref haplotype, then the alt haplotype. Returns
+        (the genotyped sites' indices, (reads, err64, haps, read_lens,
+        hap_lens) on the device), or None when no site has reads. Rewrites
+        each inferred <INS> candidate to the VCF anchor convention; an <INS>
+        without an inferred sequence or anchor base is skipped."""
+        ref = np.frombuffer(self.index.reference, np.uint8)
+        offs = dict(zip(self.contig_names, (int(x) for x in self.contig_offsets)))
+        lens_c = dict(zip(self.contig_names,
+                          (int(x) for x in self.contig_lengths)))
+        o = np.array([offs[c.contig] for c in sites], np.int64)
+        w0 = np.maximum(o, abs_pos - window)
+        w1 = np.minimum(o + np.array([lens_c[c.contig] for c in sites]),
+                        abs_pos + window + 1)
+        i0 = abs_pos - w0
+        kind = np.array([{"<DEL>": 1, "<INS>": 2}.get(c.alt_base, 0)
+                         for c in sites])
+        inferred = np.array([s in ins_seqs for s in range(len(sites))])
+        # an <INS> needs its inferred sequence and an anchor base
+        ins_ok = inferred & (i0 > 0)
+        live = np.flatnonzero((reads["per_site"] > 0)
+                              & ((kind != 2) | ins_ok))
+        if live.size == 0:
+            return None
+        w0, w1, i0, kind = w0[live], w1[live], i0[live], kind[live]
+        ins = [ins_seqs.get(int(s), b"") for s in live]
+        ref_len = w1 - w0
+        alt_len = ref_len + np.where(kind == 1, -1, 0) + np.array(
+            [len(x) for x in ins])
+        N = int(max(ref_len.max(), alt_len.max()))
+        col = np.arange(N)[None, :]
+        pad_b = int(encode.PAD_B)
+        ref_hap = np.where(col < ref_len[:, None],
+                           ref[np.minimum(w0[:, None] + col, ref.size - 1)],
+                           pad_b).astype(np.uint8)
+        # deletions read the window one base further from the site on
+        skip = np.where((kind[:, None] == 1) & (col >= i0[:, None]), 1, 0)
+        alt_hap = np.where(col < alt_len[:, None],
+                           ref[np.minimum(w0[:, None] + col + skip,
+                                          ref.size - 1)],
+                           pad_b).astype(np.uint8)
+        snp = np.flatnonzero(kind == 0)
+        alt_hap[snp, i0[snp]] = [ord(sites[s].alt_base) for s in live[snp]]
+        for k in np.flatnonzero(kind == 2).tolist():
+            c = sites[live[k]]
+            h = ref_hap[k, :ref_len[k]].tobytes()
+            seq = ins[k]
+            alt_hap[k, :alt_len[k]] = np.frombuffer(
+                h[:i0[k]] + seq + h[i0[k]:], np.uint8)
+            c.pos -= 1
+            c.ref_base = chr(h[i0[k] - 1])
+            c.alt_base = c.ref_base + seq.decode()
+        rows = reads["rows"][np.isin(reads["sites"], live)]
+        hap_k = np.repeat(np.arange(live.size), reads["per_site"][live])
+        read_rows = np.repeat(rows, 2)
+        hap_rows = np.stack([2 * hap_k, 2 * hap_k + 1], axis=1).reshape(-1)
+        haps = np.stack([ref_hap, alt_hap], axis=1).reshape(-1, N)
+        hap_lens = np.stack([ref_len, alt_len], axis=1).reshape(-1)
+        dev = self.device
+        seq_t = torch.from_numpy(reads["seqs"]).to(dev)
+        lens_t = torch.from_numpy(reads["lens"]).to(dev)
+        phred = torch.from_numpy(reads["quals"]).to(dev).to(torch.float64) - 33
+        col_t = torch.arange(seq_t.shape[1], device=dev)[None, :]
+        err = torch.where(col_t < lens_t[:, None], pairhmm.phred_error(phred),
+                          0)
+        sel = torch.from_numpy(read_rows).to(dev)
+        hsel = torch.from_numpy(hap_rows).to(dev)
+        return live, (seq_t[sel], err[sel],
+                      torch.from_numpy(haps).to(dev)[hsel], lens_t[sel],
+                      torch.from_numpy(hap_lens.astype(np.int32)).to(dev)[hsel])
+
     def _extract_candidates(self, pileup: np.ndarray) -> list[Candidate]:
         bases = "ACGTN"
         ref = self.index.ref_codes
@@ -884,6 +1167,44 @@ class VariantPrepEngine:
                         (int(x) for x in self.contig_lengths)))
 
 
+def _ranks(n: np.ndarray) -> np.ndarray:
+    """0, 1, ..., n[0]-1, 0, 1, ..., n[1]-1, ...: each entry's rank in its
+    run of ``np.repeat(..., n)``."""
+    total = int(n.sum())
+    return np.arange(total) - np.repeat(np.cumsum(n) - n, n)
+
+
+def _oriented_reads(arr, lens, qflat, qoffs, starts, flipped, rows):
+    """Rows ``rows`` of a chunk as the genotyper scores them: (seqs, quals,
+    lens, starts). Reads mapped on the reverse strand are
+    reverse-complemented and their qualities reversed; a read whose quality
+    string's length differs from its own is scored at Q30."""
+    seqs = arr[rows]
+    n = np.asarray(lens, np.int32)[rows]
+    quals = np.full(seqs.shape, 33 + 30, np.uint8)
+    qlen = np.diff(qoffs)[rows]
+    same = np.flatnonzero(qlen == n)
+    r = np.repeat(same, n[same])
+    c = _ranks(n[same])
+    quals[r, c] = qflat[np.repeat(qoffs[rows][same], n[same]) + c]
+    flip = np.asarray(flipped, bool)[rows]
+    n_flip = torch.from_numpy(n[flip])
+    seqs[flip] = encode.revcomp_padded(torch.from_numpy(seqs[flip]), n_flip,
+                                       int(encode.PAD_A)).numpy()
+    quals[flip] = _reverse_prefix(torch.from_numpy(quals[flip]),
+                                  n_flip).numpy()
+    return seqs, quals, n, np.asarray(starts, np.int64)[rows]
+
+
+def _widen(rows: np.ndarray, width: int, fill: int) -> np.ndarray:
+    """(R, L) -> (R, max(L, width)), the new columns ``fill``."""
+    if rows.shape[1] >= width:
+        return rows
+    out = np.full((rows.shape[0], width), fill, rows.dtype)
+    out[:, :rows.shape[1]] = rows
+    return out
+
+
 def _drain(deferred: list) -> int:
     """Sum and clear the deferred device counts (one device read)."""
     if not deferred:
@@ -895,21 +1216,46 @@ def _drain(deferred: list) -> int:
 
 def write_candidates_vcf(path: str, res: VariantPrepResult,
                          contigs: list[tuple[str, int]] | None = None) -> None:
-    """Minimal VCF-like output for the DeepVariant hand-off (the JAX
-    package's, without the genotype columns of ``--genotype``, which is
-    not ported). ``contigs`` defaults to the table the engine recorded on
-    the result."""
+    """Minimal VCF-like output for the DeepVariant hand-off, byte for byte
+    the JAX package's: genotyped candidates (``--genotype``) add the
+    FORMAT header lines, GT:GQ:PL columns and QUAL = the 0/0 genotype's PL,
+    capped at 9999; a site left without a genotype prints ./.:.:. .
+    ``contigs`` defaults to the table the engine recorded on the result."""
     if contigs is None:
         contigs = res.contigs or [("ref", res.reference_length)]
+    genotyped = any(c.gl is not None for c in res.candidates)
     with open(path, "w") as f:
         f.write("##fileformat=VCFv4.2\n")
         for name, length in contigs:
             f.write(f"##contig=<ID={name},length={length}>\n")
-        f.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+        if genotyped:
+            f.write('##FORMAT=<ID=GT,Number=1,Type=String,'
+                    'Description="Genotype">\n')
+            f.write('##FORMAT=<ID=GQ,Number=1,Type=Integer,'
+                    'Description="Genotype quality (Phred)">\n')
+            f.write('##FORMAT=<ID=PL,Number=G,Type=Integer,Description='
+                    '"Phred-scaled genotype likelihoods (Pair-HMM)">\n')
+        cols = "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO"
+        f.write(cols + ("\tFORMAT\tSAMPLE\n" if genotyped else "\n"))
         for c in res.candidates:
-            f.write(f"{c.contig}\t{c.pos + 1}\t.\t{c.ref_base}\t{c.alt_base}"
-                    f"\t.\t.\tDP={c.depth};AC={c.alt_count};"
-                    f"AF={c.alt_fraction:.3f}\n")
+            # QUAL: Phred confidence that ANY variant is present, the 0/0
+            # genotype's PL; "." when not genotyped
+            qual = "."
+            if c.gl is not None:
+                qual = str(int(round(min(-10.0 * (c.gl[0] - max(c.gl)),
+                                         9999.0))))
+            line = (f"{c.contig}\t{c.pos + 1}\t.\t{c.ref_base}\t{c.alt_base}"
+                    f"\t{qual}\t.\tDP={c.depth};AC={c.alt_count};"
+                    f"AF={c.alt_fraction:.3f}")
+            if genotyped:
+                if c.gl is not None:
+                    best = max(c.gl)
+                    pl = ",".join(str(int(round(-10.0 * (g - best))))
+                                  for g in c.gl)
+                    line += f"\tGT:GQ:PL\t{c.gt}:{c.gq}:{pl}"
+                else:
+                    line += "\tGT:GQ:PL\t./.:.:."
+            f.write(line + "\n")
 
 
 # ---------------------------------------------------------------------------

@@ -294,3 +294,136 @@ def test_engine_new_modes_on_the_card(tmp_path, cuda_device, mode):
     if mode == "sw-affine":
         assert sw_cuda.sw_affine_batch_cuda.launches == launches + 5
         assert res.score == 2 * sum(map(len, reads))
+
+
+def _pairhmm_lanes(rng, B, M, N):
+    """Reads cut from their haplotypes with substitutions (some longer
+    than the haplotype), unrelated reads and empty lanes; Q5-Q40."""
+    from mini_parallel_tpu_torch.ops import pairhmm
+
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    reads, haps = [], []
+    for k in range(B):
+        hap = rng.choice(acgt, int(rng.integers(1, N + 1)))
+        m = int(rng.integers(1, M + 1))
+        s = int(rng.integers(0, max(hap.size - m, 0) + 1))
+        read = np.concatenate([hap[s:s + m], rng.choice(acgt, m)])[:m]
+        read[rng.random(m) < 0.03] = ord("A")
+        reads.append([read.tobytes(), b"", rng.choice(acgt, m).tobytes(),
+                      read.tobytes()][k % 4])
+        haps.append(hap.tobytes() if k % 7 != 6 else b"")
+    arr_r, la = encode.pad_batch(reads, pad_to=M, pad_value=int(encode.PAD_A))
+    arr_h, lb = encode.pad_batch(haps, pad_to=N, pad_value=int(encode.PAD_B))
+    q = torch.from_numpy(rng.integers(5, 41, (B, M)).astype(np.float64))
+    err = torch.where(torch.arange(M)[None, :] < torch.from_numpy(la)[:, None],
+                      pairhmm.phred_error(q), 0)
+    return (torch.from_numpy(arr_r), err, torch.from_numpy(arr_h),
+            torch.from_numpy(la), torch.from_numpy(lb))
+
+
+@pytest.mark.parametrize("B,M,N", [(1000, 152, 101), (37, 300, 120),
+                                   (64, 40, 200), (5, 1, 7)])
+@pytest.mark.parametrize("f64", [False, True])
+def test_pairhmm_kernel_matches_plain(cuda_device, B, M, N, f64):
+    """csrc/pairhmm.cu vs the plain pairhmm_batch on the card: the same
+    -inf lanes; |Δlog10| <= 1e-4 in float32 (log10f against torch's log10
+    at most), <= 1e-9 in float64."""
+    from mini_parallel_tpu_torch.ops import pairhmm, pairhmm_cuda
+
+    rng = np.random.default_rng(B + M + N)
+    reads, err, haps, la, lb = (t.to(cuda_device) for t in
+                                _pairhmm_lanes(rng, B, M, N))
+    dtype = torch.float64 if f64 else torch.float32
+    kernel = (pairhmm_cuda.pairhmm_f64_batch_cuda if f64
+              else pairhmm_cuda.pairhmm_batch_cuda)
+    launches = kernel.launches
+    got = pairhmm.pairhmm_batch_best(reads, err.to(dtype), haps, la, lb)
+    want = pairhmm.pairhmm_batch(reads, err.to(dtype), haps, la, lb,
+                                 dtype=dtype)
+    torch.cuda.synchronize()
+    assert kernel.launches == launches + 1
+    assert got.dtype == dtype
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    assert float((got[fin] - want[fin]).abs().max()) <= (1e-9 if f64 else 1e-4)
+
+
+def test_pairhmm_log10_padded_on_the_card_matches_cpu(cuda_device):
+    """The engine's batch (float32, then float64 on the underflowed lanes)
+    on the card == on the CPU within 1e-4, with one launch of each."""
+    from mini_parallel_tpu_torch.ops import pairhmm, pairhmm_cuda
+
+    rng = np.random.default_rng(11)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    src = rng.choice(acgt, 400)
+    reads = [src[25 + o:175 + o].tobytes() for o in range(0, 150, 3)]
+    args = _pairhmm_lanes(rng, 60, 152, 101)
+    arr_r, la = encode.pad_batch(reads, pad_to=152, pad_value=int(encode.PAD_A))
+    hap = np.full((len(reads), 101), encode.PAD_B, np.uint8)
+    hap[:] = src[150:251]
+    err = torch.full((len(reads), 152), 1e-3, dtype=torch.float64)
+    args = [torch.cat([a, b]) for a, b in zip(args, (
+        torch.from_numpy(arr_r), err, torch.from_numpy(hap),
+        torch.from_numpy(la), torch.full((len(reads),), 101,
+                                         dtype=torch.int32)))]
+    before = (pairhmm_cuda.pairhmm_batch_cuda.launches,
+              pairhmm_cuda.pairhmm_f64_batch_cuda.launches)
+    got, n = pairhmm.pairhmm_log10_padded(*(a.to(cuda_device) for a in args))
+    want, n_cpu = pairhmm.pairhmm_log10_padded(*args)
+    assert n == n_cpu > 0
+    assert (pairhmm_cuda.pairhmm_batch_cuda.launches,
+            pairhmm_cuda.pairhmm_f64_batch_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
+    got = got.cpu()
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    assert float((got[fin] - want[fin]).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("shape,chain", [((2048, 512), 64), ((3, 5), 2048),
+                                         ((1000,), 0)])
+def test_roofline_chain_kernel_matches_plain(cuda_device, shape, chain):
+    """csrc/roofline.cu == the plain chain exactly."""
+    from mini_parallel_tpu_torch.tools import roofline
+
+    rng = np.random.default_rng(len(shape) + chain)
+    a = torch.from_numpy(rng.integers(-3, 3, shape, np.int32)).to(cuda_device)
+    b = torch.from_numpy(rng.integers(-100, 100, shape, np.int32)).to(cuda_device)
+    launches = roofline.roofline_chain_cuda.launches
+    got = roofline.roofline_chain_cuda(a, b, chain)
+    torch.cuda.synchronize()
+    assert roofline.roofline_chain_cuda.launches == launches + 1
+    assert torch.equal(got, roofline.roofline_chain(a, b, chain))
+
+
+def test_genotype_on_the_card_matches_cpu(tmp_path, cuda_device):
+    """--genotype's engine on the card == on the CPU: the same calls, GT
+    and GQ, GL within 1e-3, through both Pair-HMM precisions."""
+    from mini_parallel_tpu_torch.models import variant_prep as vp
+    from mini_parallel_tpu_torch.ops import pairhmm_cuda
+
+    rng = np.random.default_rng(4)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    ref = rng.choice(acgt, 3000).tobytes()
+    hap = bytearray(ref)
+    for p in (500, 1500, 2500):
+        hap[p] = ord("A") if ref[p] != ord("A") else ord("C")
+    del hap[2000]
+    reads = [bytes(hap[s:s + 150]) for s in rng.integers(0, 2800, 400)]
+    path = str(tmp_path / "gt.fastq.gz")
+    fastq.write_fastq(path, reads)
+    cfg = Config(chunk_size_reads=64)
+    runs = []
+    before = pairhmm_cuda.pairhmm_f64_batch_cuda.launches
+    for dev in (cuda_device, torch.device("cpu")):
+        eng = vp.VariantPrepEngine(ref, cfg, gapped=True, min_depth=3,
+                                   device=dev)
+        runs.append(eng.genotype_candidates(path, eng.process_file(path)))
+    got, want = runs
+    assert pairhmm_cuda.pairhmm_f64_batch_cuda.launches == before + 1
+    assert [(c.pos, c.alt_base, c.gt, c.gq) for c in got.candidates] == \
+        [(c.pos, c.alt_base, c.gt, c.gq) for c in want.candidates]
+    for g, w in zip(got.candidates, want.candidates):
+        if w.gl is not None:
+            np.testing.assert_allclose(g.gl, w.gl, rtol=0, atol=1e-3)
+    assert sum(c.gt == "1/1" for c in got.candidates) >= 3
