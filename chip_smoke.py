@@ -26,14 +26,18 @@ Phases, one line or more each; any failure raises and exits non-zero:
    (0, -2) against the linear kernel, custom gap costs, 16 pairs against
    ``sw_affine_numpy``.
 6. Long-pair strip kernel vs the plain per-strip functions, linear and
-   affine: one strip with carried columns, 20,000 x 15,000 host loops at
-   two strip widths, 3,000 x 5,000 against the blocked goldens (a segment
-   and a gap across a strip edge), an identical 100,000-base pair (2n),
-   empty sides.
+   affine: one strip with carried columns (a group of one); the
+   strip-group kernel vs the plain group with more strips than the card
+   holds blocks (a second wave of tickets), M not a multiple of the row
+   chunk, M below one chunk, a ragged last strip, strips of 4 warps;
+   20,000 x 15,000 host loops at two strip widths, 3,000 x 5,000 against
+   the blocked goldens (a segment and a gap across a strip edge), an
+   identical 100,000-base pair (2n), empty sides.
 7. Times: the affine kernel and its plain version at 10,000 x 152; the
-   long kernel at 200,000 x 150,000 and, with its plain host loop, at
-   20,000 x 15,000; the batched kernel at B = 1 against the long kernel at
-   2048^2 and 8192^2.
+   long kernel at 200,000 x 150,000 (with the group geometry), one strip
+   of it alone (one warp's step latency) and, with its plain host loop,
+   at 20,000 x 15,000; the batched kernel at B = 1 against the long
+   kernel at 2048^2 and 8192^2.
 8. This slice's entry points through ``cli.main``: --full-wgs in sw-affine
    (total 2 x bases, one affine launch per chunk) and contiguous; --files
    in all four modes (sw and sw-affine equal to the plain version over the
@@ -43,7 +47,8 @@ Phases, one line or more each; any failure raises and exits non-zero:
    strip width and to the plain per-strip host loop at the same size, and
    the pair's first two 200,000 x 8192 strips (strip 1 with strip 0's
    carried columns) kernel == plain on the best score and the carried
-   columns. Kernel counts are zeroed before each path and read after.
+   columns, and the same columns as one group of default-width strips.
+   Kernel counts are zeroed before each path and read after.
 9. Variant-prep fixtures: a seeded 2-contig reference (4,641,652 bases,
    the length of E. coli K-12 MG1655, and a 100 kb plasmid), a donor with
    4,000 SNPs and 400 + 400 1-10-base deletions and insertions, and lanes
@@ -52,7 +57,10 @@ Phases, one line or more each; any failure raises and exits non-zero:
    killed): two of 465,000 reads (~30x), one of 100,000 and one of 4,000.
 10. The vs-reference kernel (csrc/sw_vs_ref.cu) == plain sw_vs_ref_batch,
     exactly: 256 reads x 20,000 bases with a repeat and all-pad rows, rows
-    past one stripe, 8 rescue targets against the whole reference (also
+    past one stripe; the segment split at 16-48-column segments and the
+    default (a tie across segments, a gapped copy across a segment edge,
+    all-pad and all-N reads, M = 300), also == the plain segment mirror;
+    8 rescue targets against the whole reference (also
     == the strip engine, anchors == their planted starts), and a real
     --rescue chunk against the whole reference.
 11. The traceback kernels (csrc/sw_moves.cu, linear and affine) == the
@@ -509,10 +517,12 @@ def phase_long_compare(rng, device):
         err = max(int((g.long() - w.long()).abs().max())
                   for g, w in zip(got, want))
         max_err = max(max_err, err)
-        print(f"[6 strip] {label} one strip {CMP_M} x 8192, carried columns "
-              f"in: best {int(got[0])} kernel==plain (best and right "
-              f"columns) {err == 0} max_abs_err {err}", flush=True)
+        print(f"[6 strip] {label} one strip {CMP_M} x 8192 (a group of "
+              f"one), carried columns in: best {int(got[0])} kernel==plain "
+              f"(best and right columns) {err == 0} max_abs_err {err}",
+              flush=True)
         check(err == 0, f"{label} strip kernel != plain")
+    max_err = max(max_err, compare_groups(device))
 
     cpu_scores = {}
     # a shared segment with a 40-base gap, across the 8192-column edge
@@ -566,13 +576,63 @@ def phase_long_compare(rng, device):
     return max_err
 
 
+def compare_groups(device) -> int:
+    """The strip-group kernel == the plain group function on the card,
+    linear and affine, from random carried-in columns: more strips than
+    the card holds blocks (a second wave of tickets), M not a multiple of
+    the 32-row chunk, M below one chunk, a ragged last strip and strips of
+    several warps. Returns the largest difference. Its own generator keeps
+    the later phases' data as it was before these cases."""
+    import torch
+
+    from mini_parallel_tpu_torch.ops import sw_long
+
+    rng = np.random.default_rng(SEED + 6)
+    fit = max(sw_long.resident_blocks(16, affine, device)
+              for affine in (False, True))
+    cases = {f"second wave: {fit + 37} strips of 16 > {fit} resident": (
+                 45, 16, 16 * (fit + 37)),
+             "M = 1000 (not a chunk multiple), 20 strips of 64": (
+                 1000, 64, 64 * 20),
+             "M = 7 (below one chunk), 9 strips of 32": (7, 32, 32 * 9),
+             "ragged last strip: 3 x 512 + 48": (CMP_M, 512, 512 * 3 + 48),
+             "strips of 4 warps: 3 x 2048 + 1024": (3000, 2048, 2048 * 3 + 1024)}
+    max_err = 0
+    for name, (M, W, Wtot) in cases.items():
+        a = rng.choice(np.frombuffer(b"ACGTN", np.uint8), M)
+        b = rng.choice(np.frombuffer(b"ACGTN", np.uint8), Wtot)
+        half = min(M, Wtot) // 2
+        b[Wtot // 3:Wtot // 3 + half] = a[:half]
+        ta, tb = (torch.from_numpy(x).to(device) for x in (a, b))
+        lh = torch.from_numpy(rng.integers(0, 60, M).astype(np.int32)).to(device)
+        lf = torch.from_numpy(rng.integers(-70, 50, M).astype(np.int32)
+                              ).to(device)
+        for label, got, want in (
+                ("linear", sw_long.sw_strip_cuda(ta, tb, lh, strip_width=W),
+                 sw_long.sw_strip_group(ta, tb, lh, strip_width=W)),
+                ("affine", sw_long.sw_affine_strip_cuda(
+                    ta, tb, lh, lf, -3, -1, strip_width=W),
+                 sw_long.sw_affine_strip_group(ta, tb, lh, lf, -3, -1,
+                                               strip_width=W))):
+            torch.cuda.synchronize()
+            err = max(int((g.long() - w.long()).abs().max())
+                      for g, w in zip(got, want))
+            max_err = max(max_err, err)
+            print(f"[6 group] {label} {name}, {M} rows: best {int(got[0])} "
+                  f"kernel==plain group (best and last columns) {err == 0} "
+                  f"max_abs_err {err}", flush=True)
+            check(err == 0, f"{label} group kernel != plain on {name}")
+    return max_err
+
+
 def _plain_long(fn, a, b, device, width):
-    """``fn``'s host loop with the plain per-strip function on the card."""
+    """``fn``'s host loop with the plain group function on the card."""
     from mini_parallel_tpu_torch.ops import sw_long
 
     real = sw_long.strip_best
-    sw_long.strip_best = lambda affine, dev: (sw_long.sw_affine_strip
-                                              if affine else sw_long.sw_strip)
+    sw_long.strip_best = lambda affine, dev: (sw_long.sw_affine_strip_group
+                                              if affine
+                                              else sw_long.sw_strip_group)
     try:
         return fn(a, b, device, strip_width=width)
     finally:
@@ -584,7 +644,10 @@ def phase_new_times(rng, main_pairs, device):
     plain); the long kernel at 200,000 x 150,000 and its plain host loop
     at 20,000 x 15,000; the batched kernel at B = 1 against the long
     kernel at 2048^2 and 8192^2 (the LONG_PAIR_THRESHOLD crossover)."""
+    import torch
+
     from mini_parallel_tpu_torch.ops import sw, sw_cuda, sw_long
+    from mini_parallel_tpu_torch.ops.sw import NEG
 
     a, b = pair_batch(*main_pairs, MAIN_PAD, MAIN_PAD, device)
     cells = MAIN_B * MAIN_LEN * MAIN_LEN
@@ -597,11 +660,34 @@ def phase_new_times(rng, main_pairs, device):
              "affine_plain_ms": report_time(
                  7, "affine plain 10000x150 (pad 152)", plain, cells)}
 
+    W = sw_long.DEFAULT_STRIP_WIDTH
+    for m, n in ((LONG_M, LONG_N), (CMP_M, CMP_N)):
+        strips = -(-n // W)
+        print(f"[7 geometry] {m} x {n}: {strips} strips of {W} in "
+              f"{-(-strips // sw_long.group_strips(m, True))} affine "
+              f"group(s); "
+              f"the card holds {sw_long.resident_blocks(W, False, device)} "
+              f"such blocks linear, "
+              f"{sw_long.resident_blocks(W, True, device)} affine", flush=True)
     la, lb = long_pair(rng, LONG_M, LONG_N)
     for fn in (sw_long.sw_score_long, sw_long.sw_affine_score_long):
         report_time(7, f"{fn.__name__} kernel {LONG_M} x {LONG_N}",
                     time_samples(lambda: fn(la, lb, device), repeats=3),
                     float(LONG_M) * LONG_N)
+    # one strip of the default width alone: one warp with nothing to wait
+    # on, so the time over LONG_M + 31 steps is one step's latency
+    ta = torch.from_numpy(la).to(device)
+    tb = torch.from_numpy(lb[:W].copy()).to(device)
+    h0 = torch.zeros(LONG_M, dtype=torch.int32, device=device)
+    f0 = torch.full((LONG_M,), NEG, dtype=torch.int32, device=device)
+    for label, fn in (("linear", lambda: sw_long.sw_strip_cuda(ta, tb, h0)),
+                      ("affine", lambda: sw_long.sw_affine_strip_cuda(
+                          ta, tb, h0, f0))):
+        ms = report_time(7, f"one {label} strip alone, {LONG_M} x {W} (one "
+                         "warp)", time_samples(fn, repeats=3),
+                         float(LONG_M) * W)
+        print(f"[7 step] {label}: {1e6 * ms / (LONG_M + 31):.1f} ns a "
+              "wavefront step of one warp", flush=True)
     ca, cb = long_pair(rng, CMP_M, CMP_N)
     cmp_cells = float(CMP_M) * CMP_N
     long_times = {}
@@ -853,6 +939,24 @@ def compare_strips_at_scale(a: np.ndarray, b: np.ndarray, affine: bool,
               flush=True)
         check(err == 0, f"strip kernel != plain on strip {s} at {a.size} rows")
         cols = list(want[1:])
+        best = want[0] if s == 0 else torch.maximum(best, want[0])
+    # the same 2 x MAX_STRIP_WIDTH columns as ONE group of default-width
+    # strips, against the plain strips' best and carried columns
+    start = [torch.zeros(a.size, dtype=torch.int32, device=device)]
+    if affine:
+        start.append(torch.full((a.size,), NEG, dtype=torch.int32,
+                                device=device))
+    W = sw_long.DEFAULT_STRIP_WIDTH
+    got = kernel(ta, tb, *start, strip_width=W)
+    torch.cuda.synchronize()
+    err = max(int((g.long() - w.long()).abs().max())
+              for g, w in zip(got, (best, *cols)))
+    max_err = max(max_err, err)
+    print(f"[8 group {'affine' if affine else 'linear'}] the same columns as "
+          f"one group of {tb.numel() // W} strips of {W}: best "
+          f"{int(got[0])} == the plain strips' (best and last columns) "
+          f"{err == 0} max_abs_err {err}", flush=True)
+    check(err == 0, f"group kernel != plain strips at {a.size} rows")
     return max_err
 
 
@@ -1069,8 +1173,8 @@ def phase_vs_ref_compare(rng, eng, fx: dict, chunk: dict, device) -> dict:
     chr_ref = np.frombuffer(fx["contigs"]["chr"], np.uint8)
     out = {"max_err": 0}
 
-    def compare(name, reads, ref):
-        got = sw_cuda.sw_vs_ref_batch_cuda(reads, ref)
+    def compare(name, reads, ref, segment=0):
+        got = sw_cuda.sw_vs_ref_batch_cuda(reads, ref, segment)
         plain_ms, want = time_once(lambda: sw.sw_vs_ref_batch(reads, ref))
         torch.cuda.synchronize()
         err = max(int((g.long() - w.long()).abs().max()) for g, w in
@@ -1103,6 +1207,7 @@ def phase_vs_ref_compare(rng, eng, fx: dict, chunk: dict, device) -> dict:
                                     torch.from_numpy(ref).to(device))
         check(int(scores[0]) == 0 and int(ends[0]) == -1,
               "an all-pad read must give (0, -1)")
+    compare_segments(rng, chr_ref, compare, device)
 
     # 8 rescue targets cut from the reference, 4 of them reverse-complemented
     starts = np.sort(rng.integers(1_000, chr_ref.size - 1_000, 8))
@@ -1158,6 +1263,52 @@ def phase_vs_ref_compare(rng, eng, fx: dict, chunk: dict, device) -> dict:
                              repeats=3),
                 float(VS_REF_TIMED_READS) * VP_READ_LEN * G)
     return out
+
+
+def compare_segments(rng, chr_ref: np.ndarray, compare, device) -> None:
+    """The vs-reference kernel's segment split at narrow segment widths
+    (and its default) == plain sw_vs_ref_batch (through ``compare``) ==
+    the plain segment mirror: a read twice in a 1,001-base reference
+    (equal best in two segments: the smaller end must win), a copy with a
+    3-base gap across column 256, all-pad and all-N reads, and rows past
+    one stripe (M = 300); 1,001 is no multiple of any segment."""
+    import torch
+
+    from mini_parallel_tpu_torch.ops import encode, sw
+
+    ref = chr_ref[:1001].copy()
+    read = ref[100:120].copy()
+    ref[700:720] = read
+    ref[400:430] = ord("N")
+    copy = ref[226:286].copy()
+    edge_rows = [read.tobytes(), b"", np.concatenate([copy[:25], copy[28:]]
+                                                     ).tobytes(),
+                 b"N" * 20, read[:7].tobytes()]
+    stripe_rows = []
+    for k in range(9):
+        n = int(rng.integers(1, 301))
+        s = int(rng.integers(0, ref.size - n))
+        stripe_rows.append([ref[s:s + n].tobytes(), b"", b"N" * n][k % 3])
+    tref = torch.from_numpy(ref).to(device)
+    for segment in (16, 32, 48, 0):
+        for name, rows, M in (("a tie in two segments, a gapped copy "
+                               "across column 256, all-pad, all-N",
+                               edge_rows, 64),
+                              ("rows past one stripe", stripe_rows, 300)):
+            reads = padded(rows, M, int(encode.PAD_A), device)
+            (scores, ends), _ = compare(
+                f"segments of {segment or 'the default'} columns: {name}",
+                reads, tref, segment)
+            mirror = sw.sweep_segments(reads.cpu(), tref.cpu(), segment or 64)
+            same = all(torch.equal(g.cpu(), m) for g, m in
+                       zip((scores, ends), mirror))
+            check(same, f"vs-ref kernel != the segment mirror on {name}")
+            if rows is edge_rows:
+                check((int(scores[0]), int(ends[0])) == (40, 119),
+                      f"the tie across segments gave ({int(scores[0])}, "
+                      f"{int(ends[0])}), not (40, 119)")
+    print("[10 vs-ref] every segment case == the plain segment mirror; the "
+          "tie across segments keeps the smaller end (40, 119)", flush=True)
 
 
 def moves_pairs(rng, B: int, M: int, N: int, device):

@@ -20,7 +20,8 @@ Layers:
     against :func:`sw_affine_batch`.
   - :func:`sw_vs_ref_batch` — every read against one shared reference,
     with the smallest end of the best cell (the ``--rescue`` mapper); the
-    vs-reference CUDA kernel is held against it.
+    vs-reference CUDA kernel is held against it. :func:`sweep_segments`
+    reaches the same result by the kernel's segment split (tests).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ MISMATCH_PENALTY = -1  # smith_waterman.cl:6
 GAP_PENALTY = -2  # smith_waterman.cl:7
 # reads x reference cells that one step of the plain sw_vs_ref_batch holds
 VS_REF_BLOCK_CELLS = 1 << 26
+INT32_MAX = (1 << 31) - 1
 
 
 def sw_score_numpy(a, b, match=MATCH_SCORE, mismatch=MISMATCH_PENALTY,
@@ -136,14 +138,54 @@ def sw_vs_ref_batch(reads: torch.Tensor, ref: torch.Tensor
     return scores, ends
 
 
-def _vs_ref_rows(a: torch.Tensor, ref: torch.Tensor
+def sweep_segments(reads: torch.Tensor, ref: torch.Tensor, segment: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain mirror of csrc/sw_vs_ref.cu's segment decomposition
+    (its ``sweep_segment``), used by tests: the same result as
+    :func:`sw_vs_ref_batch`, reached the kernel's way.
+
+    The reference is cut into segments of ``segment`` columns. The segment
+    owning [s, e) runs the DP on ref[c0:e], c0 = max(0, s - 2M), from a
+    zero edge, and reports only its own columns: (max score, smallest
+    end). The segments of a read meet in the 64-bit key
+    (score << 32) | (2^31 - 1 - end), reduced by max and decoded by
+    :func:`decode_vs_ref_keys`."""
+    if segment <= 0:
+        raise ValueError(f"segment width {segment} must be positive")
+    B, M = reads.shape
+    N = ref.shape[0]
+    keys = torch.zeros(B, dtype=torch.int64, device=reads.device)
+    live = torch.nonzero((reads != int(PAD_A)).any(dim=1)).flatten()
+    if live.numel() and M and N:
+        a = reads[live]
+        for s in range(0, N, segment):
+            e = min(s + segment, N)
+            c0 = max(0, s - 2 * M)
+            score, end = _vs_ref_rows(a, ref[c0:e], own=s - c0)
+            key = (score.to(torch.int64) << 32) | (INT32_MAX - c0 - end)
+            keys[live] = torch.maximum(keys[live],
+                                       torch.where(score > 0, key, 0))
+    return decode_vs_ref_keys(keys)
+
+
+def decode_vs_ref_keys(keys: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B,) int64 keys (score << 32) | (2^31 - 1 - end), 0 for no cell
+    above 0 -> (scores (B,) int32, ends (B,) int32, -1 at score 0)."""
+    scores = (keys >> 32).to(torch.int32)
+    ends = torch.where(scores > 0, INT32_MAX - (keys & 0xFFFFFFFF), -1)
+    return scores, ends.to(torch.int32)
+
+
+def _vs_ref_rows(a: torch.Tensor, ref: torch.Tensor, own: int = 0
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """sw_vs_ref_batch's sweep of reads that are not all pad."""
+    """sw_vs_ref_batch's sweep of reads that are not all pad; the best
+    and its smallest end are taken over the columns >= ``own`` only."""
     Bl, M = a.shape
     N = ref.shape[0]
     dev = a.device
     ramp = 2 * torch.arange(N, dtype=torch.int64, device=dev)[None, :]
-    col = torch.arange(N, dtype=torch.int64, device=dev)[None, :]
+    col = torch.arange(own, N, dtype=torch.int64, device=dev)[None, :]
     prev = torch.zeros((Bl, N), dtype=torch.int64, device=dev)  # H[i-1, :]
     zcol = torch.zeros((Bl, 1), dtype=torch.int64, device=dev)
     best = torch.zeros(Bl, dtype=torch.int64, device=dev)
@@ -154,8 +196,9 @@ def _vs_ref_rows(a: torch.Tensor, ref: torch.Tensor
         diag = torch.cat([zcol, prev[:, :-1]], dim=1) + s
         x = torch.clamp_min(torch.maximum(diag, prev + GAP_PENALTY), 0)
         h = torch.cummax(x + ramp, dim=1).values - ramp
-        row_max = h.amax(dim=1)
-        first = torch.where(h == row_max[:, None], col, N).amin(dim=1)
+        mine = h[:, own:]
+        row_max = mine.amax(dim=1)
+        first = torch.where(mine == row_max[:, None], col, N).amin(dim=1)
         end = torch.where(row_max > best, first,
                           torch.where(row_max == best,
                                       torch.minimum(end, first), end))

@@ -76,12 +76,15 @@ def _affine_kernel_lib() -> ctypes.CDLL:
 def _vs_ref_kernel_lib() -> ctypes.CDLL:
     lib = _build.load_library(VS_REF_KERNEL_NAME, VS_REF_KERNEL_SOURCES)
     lib.sw_vs_ref_launch.argtypes = [
-        *(ctypes.c_void_p,) * 7, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_void_p,
+        *(ctypes.c_void_p,) * 8, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.sw_vs_ref_launch.restype = ctypes.c_int
-    lib.sw_vs_ref_scratch_per_read.argtypes = [ctypes.c_int, ctypes.c_longlong]
-    lib.sw_vs_ref_scratch_per_read.restype = ctypes.c_longlong
+    lib.sw_vs_ref_scratch.argtypes = [ctypes.c_longlong, ctypes.c_int,
+                                      ctypes.c_longlong, ctypes.c_int]
+    lib.sw_vs_ref_scratch.restype = ctypes.c_longlong
+    lib.sw_vs_ref_default_segment.argtypes = [ctypes.c_int]
+    lib.sw_vs_ref_default_segment.restype = ctypes.c_int
     return lib
 
 
@@ -189,7 +192,8 @@ def sw_affine_batch_best(seq_a: torch.Tensor, seq_b: torch.Tensor,
     return sw_affine_batch_cuda(seq_a, seq_b, gap_open, gap_extend)
 
 
-def sw_vs_ref_batch_cuda(reads: torch.Tensor, ref: torch.Tensor
+def sw_vs_ref_batch_cuda(reads: torch.Tensor, ref: torch.Tensor,
+                         segment: int = 0
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, M) uint8 PAD_A-padded reads x one (N,) uint8 reference, CUDA
     tensors -> (scores (B,) int32, ends (B,) int32), by the CUDA kernel,
@@ -197,7 +201,15 @@ def sw_vs_ref_batch_cuda(reads: torch.Tensor, ref: torch.Tensor
     reference and the smallest reference index of a cell at that score
     (-1 when the score is 0). Reads that are all pad are not swept: they
     are sorted behind the others on the card and the kernel reads their
-    count there, so the launch needs no host sync."""
+    count there, so the launch needs no host sync.
+
+    The kernel splits the reference into segments of ``segment`` columns
+    (0: its default, at least 20 warm-ups of 2M columns wide), each swept
+    by one warp from 2M columns early; :func:`ops.sw.sweep_segments` is
+    its plain mirror. Rows past one stripe (M > 256) need a scratch row of
+    min(segment + 2M, N) values per warp of the kernel's persistent grid;
+    the library sizes that grid from the card, B and a 256 MB cap, so the
+    count of swept reads is never read back to the host."""
     for name, t, dim in (("reads", reads, 2), ("ref", ref, 1)):
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -212,26 +224,31 @@ def sw_vs_ref_batch_cuda(reads: torch.Tensor, ref: torch.Tensor
     N = ref.shape[0]
     if N >= 1 << 31:
         raise ValueError(f"reference of {N} bases exceeds 2^31 - 1")
+    if segment < 0:
+        raise ValueError(f"segment width {segment} must be >= 0")
     dev = reads.device
-    scores = torch.zeros(B, dtype=torch.int32, device=dev)
-    ends = torch.full((B,), -1, dtype=torch.int32, device=dev)
     if B == 0 or M == 0 or N == 0:
-        return scores, ends
+        return (torch.zeros(B, dtype=torch.int32, device=dev),
+                torch.full((B,), -1, dtype=torch.int32, device=dev))
     lib = _vs_ref_kernel_lib()
     pad_only = (reads == int(PAD_A)).all(dim=1)
     rows = torch.argsort(pad_only.to(torch.uint8), stable=True).to(torch.int32)
     n_rows = (~pad_only).sum(dtype=torch.int32).reshape(1)
-    per_read = lib.sw_vs_ref_scratch_per_read(M, N)
-    # reads past one stripe (M > 256) carry a stripe's bottom row per swept
-    # read: the one case that reads the count back to size it
-    scratch = (torch.empty((int(n_rows), per_read), dtype=torch.int32,
-                           device=dev) if per_read else None)
+    keys = torch.zeros(B, dtype=torch.int64, device=dev)
+    scores = torch.empty(B, dtype=torch.int32, device=dev)
+    ends = torch.empty(B, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
+        n_scratch = lib.sw_vs_ref_scratch(B, M, N, segment)
+        if n_scratch < 0:
+            raise RuntimeError("sw_vs_ref: cannot size the kernel's grid")
+        scratch = (torch.empty(n_scratch, dtype=torch.int32, device=dev)
+                   if n_scratch else None)
         rc = lib.sw_vs_ref_launch(
             reads.data_ptr(), ref.data_ptr(), rows.data_ptr(),
-            n_rows.data_ptr(), scores.data_ptr(), ends.data_ptr(),
+            n_rows.data_ptr(), keys.data_ptr(), scores.data_ptr(),
+            ends.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
-            B, M, N, torch.cuda.current_stream(dev).cuda_stream,
+            B, M, N, segment, torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"sw_vs_ref kernel launch failed: CUDA error {rc}")

@@ -167,6 +167,147 @@ def test_vs_ref_kernel_matches_plain(cuda_device, B, M, N):
     assert int(got[0][0]) == 0 and int(got[1][0]) == -1  # the all-pad row
 
 
+def _vs_ref_edge_cases(rng):
+    """(name, reads, ref) cases of the segment split: a read twice in the
+    reference (equal best in two segments: the smaller end wins), a copy
+    across a segment edge with a 3-base gap, all-pad and all-N reads, rows
+    past one stripe (M = 300), and N not a multiple of any segment."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    ref = rng.choice(acgt, 1001)
+    read = rng.choice(acgt, 20)
+    ref[100:120] = read
+    ref[700:720] = read
+    ref[400:430] = ord("N")
+    copy = ref[226:286].copy()  # across column 256
+    cases = [("ties in two segments, an edge-crossing copy, all-pad, all-N",
+              [read.tobytes(), b"", np.concatenate([copy[:25], copy[28:]]
+                                                   ).tobytes(),
+               b"N" * 20, read[:7].tobytes()], 64, ref)]
+    rows = []
+    for k in range(9):
+        n = int(rng.integers(1, 301))
+        s = int(rng.integers(0, ref.size - n))
+        rows.append([ref[s:s + n].tobytes(), b"", b"N" * n][k % 3])
+    cases.append(("rows past one stripe", rows, 300, ref))
+    out = []
+    for name, rows, M, r in cases:
+        reads, _ = encode.pad_batch(rows, pad_to=M, pad_value=int(encode.PAD_A))
+        out.append((name, reads, r))
+    return out
+
+
+@pytest.mark.parametrize("segment", [16, 32, 48, 0])
+def test_vs_ref_segments_match_plain(cuda_device, segment):
+    """The kernel at narrow segment widths (and its default) == plain
+    sw_vs_ref_batch == the plain segment mirror, on ties and edges."""
+    rng = np.random.default_rng(segment)
+    for name, reads, ref in _vs_ref_edge_cases(rng):
+        tr, tf = (torch.from_numpy(x).to(cuda_device) for x in (reads, ref))
+        launches = sw_cuda.sw_vs_ref_batch_cuda.launches
+        got = sw_cuda.sw_vs_ref_batch_cuda(tr, tf, segment)
+        torch.cuda.synchronize()
+        assert sw_cuda.sw_vs_ref_batch_cuda.launches == launches + 1
+        want = sw.sw_vs_ref_batch(tr, tf)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), name
+        mirror = sw.sweep_segments(tr.cpu(), tf.cpu(), segment or 64)
+        assert all(torch.equal(g.cpu(), m) for g, m in zip(got, mirror)), name
+    scores, ends = (t.cpu() for t in got)
+    assert int(scores[1]) == 0 and int(ends[1]) == -1
+
+
+def test_vs_ref_tie_keeps_the_smaller_end(cuda_device):
+    name, reads, ref = _vs_ref_edge_cases(np.random.default_rng(0))[0]
+    tr, tf = (torch.from_numpy(x).to(cuda_device) for x in (reads, ref))
+    for segment in (16, 100, 0):
+        scores, ends = sw_cuda.sw_vs_ref_batch_cuda(tr, tf, segment)
+        assert (int(scores[0]), int(ends[0])) == (40, 119)
+
+
+@pytest.mark.parametrize("B,M,N", [(20_000, 300, 4_742_164),
+                                   (20_000, 4_000, 4_742_164),
+                                   (5, 300, 1_001), (20_000, 152, 4_742_164)])
+def test_vs_ref_scratch_is_bounded(cuda_device, B, M, N):
+    """Past one stripe the scratch holds one row of min(segment + 2M, N)
+    values per warp, never more rows than B x segments (rounded up to a
+    block of 4 warps) nor more than 256 MB beyond one block's rows; within
+    one stripe there is none."""
+    lib = sw_cuda._vs_ref_kernel_lib()
+    with torch.cuda.device(cuda_device):
+        n = lib.sw_vs_ref_scratch(B, M, N, 0)
+        seg = lib.sw_vs_ref_default_segment(M)
+    if M <= 256:
+        assert n == 0
+        return
+    row = min(seg + 2 * M, N)
+    assert 0 < n and n % (4 * row) == 0
+    assert n <= -(-B * -(-N // seg) // 4) * 4 * row
+    assert 4 * n <= (1 << 28) + 4 * 4 * row
+
+
+def _group_operands(rng, M, Wtot, device):
+    alphabet = np.frombuffer(b"ACGTN", np.uint8)
+    a = rng.choice(alphabet, M)
+    b = rng.choice(alphabet, Wtot)
+    b[Wtot // 3:Wtot // 3 + min(M, Wtot) // 2] = a[:min(M, Wtot) // 2]
+    lh = rng.integers(0, 60, M).astype(np.int32)
+    lf = rng.integers(-70, 50, M).astype(np.int32)
+    return [torch.from_numpy(x).to(device) for x in (a, b, lh, lf)]
+
+
+@pytest.mark.parametrize("case", ["second wave", "M not a chunk multiple",
+                                  "M below one chunk", "one strip",
+                                  "ragged last strip", "multi-warp strips"])
+def test_strip_group_kernel_matches_plain_group(cuda_device, case):
+    """The strip-group kernel == the plain group (sw_strip_group /
+    sw_affine_strip_group) on best and the carried-out column(s), from
+    random carried-in columns."""
+    M, W, Wtot = {"M not a chunk multiple": (1000, 64, 64 * 20),
+                  "M below one chunk": (7, 32, 32 * 9),
+                  "one strip": (3000, 512, 512),
+                  "ragged last strip": (700, 512, 512 * 3 + 48),
+                  "multi-warp strips": (500, 2048, 2048 * 3 + 1024),
+                  "second wave": (45, 16, 0)}[case]
+    if case == "second wave":  # more strips than the card holds blocks
+        Wtot = 16 * (max(sw_long.resident_blocks(16, False, cuda_device),
+                         sw_long.resident_blocks(16, True, cuda_device)) + 37)
+    rng = np.random.default_rng(M + W + Wtot)
+    a, b, lh, lf = _group_operands(rng, M, Wtot, cuda_device)
+    cpu = [t.cpu() for t in (a, b, lh, lf)]
+    for affine in (False, True):
+        kernel = sw_long.sw_affine_strip_cuda if affine else sw_long.sw_strip_cuda
+        n0 = kernel.launches
+        if affine:
+            got = kernel(a, b, lh, lf, -3, -1, strip_width=W)
+            want = sw_long.sw_affine_strip_group(*cpu, -3, -1, strip_width=W)
+        else:
+            got = kernel(a, b, lh, strip_width=W)
+            want = sw_long.sw_strip_group(*cpu[:3], strip_width=W)
+        torch.cuda.synchronize()
+        assert kernel.launches == n0 + 1
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), \
+            (case, affine)
+
+
+def test_long_host_loop_in_groups_on_the_card(cuda_device):
+    """The host loop at several group sizes == the blocked goldens."""
+    rng = np.random.default_rng(9)
+    a = rng.choice(np.frombuffer(b"ACGT", np.uint8), 2500)
+    b = rng.choice(np.frombuffer(b"ACGT", np.uint8), 3000)
+    b[1000:1600] = a[300:900]
+    lin, aff = (sw_long.sw_score_numpy_blocked(a, b),
+                sw_long.sw_affine_numpy_blocked(a, b))
+    for width, per_group in ((16, 7), (64, 1), (512, 2), (512, None)):
+        n0 = sw_long.sw_strip_cuda.launches
+        assert sw_long.sw_score_long(a, b, cuda_device, strip_width=width,
+                                     strips_per_group=per_group) == lin
+        strips = -(-3008 // width)
+        assert sw_long.sw_strip_cuda.launches - n0 == \
+            -(-strips // (per_group or strips))
+        assert sw_long.sw_affine_score_long(
+            a, b, cuda_device, strip_width=width,
+            strips_per_group=per_group) == aff
+
+
 def _moves_operands(rng, B, M, N, device):
     """Reads cut from their windows with substitutions and a gap, some
     unrelated, some empty."""

@@ -159,8 +159,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         sw_long.sw_strip_cuda(a, a[:0], col)
     with pytest.raises(ValueError, match="CUDA"):
         sw_long.sw_affine_strip_cuda(a, a[:0], col, col)
-    assert sw_long.strip_best(False, CPU) is sw_long.sw_strip
-    assert sw_long.strip_best(True, CPU) is sw_long.sw_affine_strip
+    assert sw_long.strip_best(False, CPU) is sw_long.sw_strip_group
+    assert sw_long.strip_best(True, CPU) is sw_long.sw_affine_strip_group
 
 
 @pytest.mark.parametrize("mode", ["sw", "sw-affine"])
