@@ -65,8 +65,10 @@ Phases, one line or more each; any failure raises and exits non-zero:
     --rescue chunk against the whole reference.
 11. The traceback kernels (csrc/sw_moves.cu, linear and affine) == the
     plain scans and walks, exactly, on best, bd, bi, positions and every
-    cell's move: a real --gapped chunk (10,000 x 152 vs 184), a ragged
-    batch, rows past one stripe.
+    cell's move: a real --gapped chunk (10,000 x 152 vs 184, every pair's
+    moves in shared memory), a ragged batch whose last block has one pair,
+    a batch of one, and the device-memory cases: rows past one stripe and
+    1,500-base windows.
 12. Times (CUDA events, medians; each plain version once): the vs-ref
     kernel on the --rescue chunk and on 1,000 reads against the whole
     reference, the traceback kernels on the --gapped chunk.
@@ -85,11 +87,14 @@ Phases, one line or more each; any failure raises and exits non-zero:
     (>= 95%), and, printed only, planted deletions with a 1/1 <DEL> within
     10 bases and insertions called with their planted bases.
 15. The Pair-HMM kernel (csrc/pairhmm.cu) vs plain pairhmm_batch, float32
-    and float64: 20,000 lanes of phase 14's operand, its float32-underflowed
-    lanes, ragged lanes, rows past one stripe, haplotypes longer and shorter
-    than their reads, an all-mismatch lane and lanes straddling the float32
-    floor; |dlog10| <= 1e-4 (float32) and 1e-9 (float64), no lane -inf on
-    one side only. Times on the sample (plain once) and on the whole operand.
+    and float64, every lane equal (max |dlog10| 0, the same -inf lanes):
+    20,000 lanes of phase 14's operand, the whole operand (float32) and all
+    its float32-underflowed lanes (float64), neighbouring lanes of very
+    different lengths with la = 0 and lb = 0 lanes among them, a batch of
+    one, ragged lanes (odd B), two stripes (M = 170) and rows past 256,
+    haplotypes longer and shorter than their reads, an all-mismatch lane
+    and lanes straddling the float32 floor. Times on the sample (plain
+    once) and on the whole operand.
 16. The roofline chain (csrc/roofline.cu) == the plain chain exactly on the
     (2048, 512) tile at CHAIN 2048; ``tools.roofline.main()``: the measured
     int32 peak beside the estimate, and sw_score's share of both.
@@ -1333,9 +1338,11 @@ def moves_pairs(rng, B: int, M: int, N: int, device):
 def phase_moves_compare(rng, chunk: dict, gaps: tuple, device) -> dict:
     """csrc/sw_moves.cu == the plain scans and walks on the card, exactly,
     linear and affine: best, bd, bi, positions and the move of every cell,
-    on a real --gapped chunk (10,000 x 152 against 184-base windows), a
-    ragged batch and rows past one stripe (M = 300). Times each kernel on
-    the chunk and each plain version once."""
+    on a real --gapped chunk (10,000 x 152 against 184-base windows, every
+    pair's moves in shared memory), a ragged batch whose last block has one
+    pair, a batch of one, and the two cases whose moves go to device
+    memory: rows past one stripe (M = 300) and 1,500-base windows. Times
+    each kernel on the chunk and each plain version once."""
     import torch
 
     from mini_parallel_tpu_torch.ops import encode
@@ -1343,11 +1350,16 @@ def phase_moves_compare(rng, chunk: dict, gaps: tuple, device) -> dict:
     from mini_parallel_tpu_torch.ops import sw_traceback_cuda as tbc
 
     q, w = chunk["queries"], chunk["windows"]
-    cases = {"a --gapped chunk of lane 1": (q, w, gaps),
-             "ragged B=33 M=37 N=50": (*moves_pairs(rng, 33, 37, 50, device),
-                                       (-3, -1)),
-             "rows past one stripe B=21 M=300 N=200": (
-                 *moves_pairs(rng, 21, 300, 200, device), (-3, 0))}
+    cases = {"a --gapped chunk of lane 1 (moves in shared memory)":
+                 (q, w, gaps),
+             "ragged B=33 M=37 N=50 (a last block of one pair)": (
+                 *moves_pairs(rng, 33, 37, 50, device), (-3, -1)),
+             "a batch of one B=1 M=152 N=184": (
+                 *moves_pairs(rng, 1, 152, 184, device), gaps),
+             "rows past one stripe B=21 M=300 N=200 (moves in device "
+             "memory)": (*moves_pairs(rng, 21, 300, 200, device), (-3, 0)),
+             "windows too long for shared memory B=3 M=200 N=1500": (
+                 *moves_pairs(rng, 3, 200, 1500, device), (-2, -1))}
     out = {"max_err": 0}
     for name, (a, b, (go, ge)) in cases.items():
         for label, kernel, plain, walk, args in (
@@ -1362,7 +1374,8 @@ def phase_moves_compare(rng, chunk: dict, gaps: tuple, device) -> dict:
             err = max(int((g.long() - x.long()).abs().max())
                       for g, x in zip(got[:4], (best, bd, bi, pos)))
             cells_equal = torch.equal(
-                tbc.moves_to_cells(got[4], a.shape[1], b.shape[1]),
+                tbc.moves_to_cells(got[4], a.shape[1], b.shape[1],
+                                   label == "affine"),
                 tb.plain_moves_to_cells(moves, b.shape[1]))
             out["max_err"] = max(out["max_err"], err, int(not cells_equal))
             aligned = int((pos >= 0).sum())
@@ -1676,12 +1689,15 @@ def phase_genotype(fx: dict, env_path: str, device) -> dict:
 
 
 def phmm_synthetic(rng, device) -> dict:
-    """Pair-HMM cases beyond the real operand: ragged lanes with empty
-    reads and haplotypes, rows past one stripe (M = 300), a haplotype
-    longer than its read and a read longer than its haplotype, the
-    all-mismatch lane of tests/test_pairhmm.py, and 150 bp Q30 reads slid
-    base by base across 101-base windows, whose values straddle the
-    float32 floor. Each is (reads, err64, haps, read_lens, hap_lens)."""
+    """Pair-HMM cases beyond the real operand: neighbouring lanes (a warp
+    sweeps two) of very different lengths with la = 0 and lb = 0 lanes
+    among them, a batch of one, ragged lanes with empty reads and
+    haplotypes (odd B: a last warp of one lane), two stripes (M = 170) and
+    rows past 256 (M = 300), a haplotype longer than its read and a read
+    longer than its haplotype, the all-mismatch lane of
+    tests/test_pairhmm.py, and 150 bp Q30 reads slid base by base across
+    101-base windows, whose values straddle the float32 floor. Each is
+    (reads, err64, haps, read_lens, hap_lens)."""
     import torch
 
     from mini_parallel_tpu_torch.ops import encode, pairhmm
@@ -1716,7 +1732,20 @@ def phmm_synthetic(rng, device) -> dict:
     mismatch = COMPLEMENT[hap[:120]]  # every base mismatched
     src = rng.choice(ACGT, 400)
     slid = [src[25 + o:175 + o].tobytes() for o in range(150)]
+    # neighbours (one warp holds two lanes) of very different lengths, and
+    # the la = 0 and lb = 0 lanes beside full ones
+    shapes = [(150, 101), (1, 1), (3, 200), (150, 101), (0, 50), (150, 7),
+              (40, 0), (150, 101), (2, 160), (0, 0), (150, 3), (299, 101),
+              (60, 1)]
+    mixed = [rng.choice(ACGT, m).tobytes() for m, _ in shapes]
+    mixed_haps = [rng.choice(ACGT, n).tobytes() for _, n in shapes]
     return {
+        "neighbouring lanes of very different la and lb, la = 0 and lb = 0 "
+        "lanes, M = 300": lanes(mixed, mixed_haps,
+                                [rng.integers(5, 41, m) for m, _ in shapes],
+                                300, 200),
+        "a batch of one B=1 M=152 N=101": cut(1, 152, 101),
+        "two stripes of 160 rows B=33 M=170 N=80": cut(33, 170, 80),
         "ragged B=37 M=60 N=90": cut(37, 60, 90),
         "rows past one stripe B=21 M=300 N=120": cut(21, 300, 120),
         "hap longer than read B=64 M=40 N=200": cut(64, 40, 200),
@@ -1747,10 +1776,11 @@ def phmm_cells_bytes(operand, f64: bool) -> tuple[float, float]:
 def phase_pairhmm_compare(rng, operand, device) -> dict:
     """csrc/pairhmm.cu vs the plain pairhmm_batch on the card, both
     precisions: PHMM_SAMPLE lanes drawn from the genotype run's operand, its
-    float32-underflowed lanes (float64), and phmm_synthetic's cases. Holds
-    |Δlog10| <= 1e-4 (float32) and 1e-9 (float64) on lanes finite on both
-    sides and no lane -inf on one side only. Times each kernel and its
-    plain version on the sample, and the kernels on the whole operand."""
+    float32-underflowed lanes (float64), the whole operand (float32), and
+    phmm_synthetic's cases. Holds every lane equal (max |Δlog10| 0, the same
+    -inf lanes): the kernel rounds each cell as the plain version does.
+    Times each kernel and its plain version on the sample, and the kernels
+    on the whole operand."""
     import torch
 
     from mini_parallel_tpu_torch.ops import pairhmm, pairhmm_cuda
@@ -1771,31 +1801,37 @@ def phase_pairhmm_compare(rng, operand, device) -> dict:
     pick = torch.from_numpy(np.sort(rng.choice(B, min(PHMM_SAMPLE, B),
                                                replace=False))).to(device)
     sample = tuple(t[pick] for t in operand)
-    f32_all, _ = run(operand, False)
+    f32_all = kernels[False](operand[0], operand[1].to(torch.float32),
+                             *operand[2:])
     under = torch.nonzero(torch.isinf(f32_all) & (operand[3] > 0)
                           & (operand[4] > 0))[:, 0]
-    cases = {f"real genotype operand, {pick.numel()} of {B} lanes": sample,
-             f"real float32-underflowed lanes ({under.numel()} of {B})":
-                 tuple(t[under[:PHMM_SAMPLE]] for t in operand),
-             **phmm_synthetic(rng, device)}
+    both = (False, True)  # float64?
+    cases = [(f"real genotype operand, {pick.numel()} of {B} lanes", sample,
+              both),
+             # as the genotyper runs them: all lanes in float32, the
+             # underflowed ones again in float64
+             (f"the whole real genotype operand ({B} lanes)", operand,
+              (False,)),
+             (f"real float32-underflowed lanes (all {under.numel()} of {B})",
+              tuple(t[under] for t in operand), (True,)),
+             *((name, lanes, both)
+               for name, lanes in phmm_synthetic(rng, device).items())]
     out = {False: {"max_err": 0.0}, True: {"max_err": 0.0}}
-    for name, lanes in cases.items():
-        for f64 in (False, True):
-            if f64 is False and name.startswith("real float32"):
-                continue
+    for name, lanes, precisions in cases:
+        for f64 in precisions:
             got, want = run(lanes, f64)
             one_sided = int((torch.isinf(got) != torch.isinf(want)).sum())
             fin = torch.isfinite(got) & torch.isfinite(want)
             err = float((got[fin].double() - want[fin].double()).abs().max()) \
                 if bool(fin.any()) else 0.0
             out[f64]["max_err"] = max(out[f64]["max_err"], err)
-            tol = 1e-9 if f64 else 1e-4
             print(f"[15 pairhmm] {'float64' if f64 else 'float32'} {name}: "
                   f"B={lanes[0].shape[0]} M={lanes[0].shape[1]} "
-                  f"N={lanes[2].shape[1]} max |dlog10| {err:.3g} (<= {tol}), "
-                  f"-inf {int(torch.isinf(got).sum())}, one-sided -inf "
-                  f"{one_sided}", flush=True)
-            check(err <= tol and one_sided == 0,
+                  f"N={lanes[2].shape[1]} max |dlog10| {err:.3g}, -inf "
+                  f"{int(torch.isinf(got).sum())}, one-sided -inf "
+                  f"{one_sided}, every lane equal {torch.equal(got, want)}",
+                  flush=True)
+            check(torch.equal(got, want),
                   f"pairhmm kernel != plain ({'f64' if f64 else 'f32'}) on {name}")
     for f64 in (False, True):
         lanes = tuple(sample)

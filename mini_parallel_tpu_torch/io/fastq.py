@@ -10,7 +10,9 @@ chunk is still yielded (aligner.rs:167-170). gzip decodes in-process.
 
 Multi-file streams (a sample's lanes, in order) and the quality-aware
 stream of ``--variant-prep --min-base-quality`` follow the JAX package's
-Python path. The native C++ decoder of the JAX package is not ported yet.
+stream functions. Records are framed as the JAX package's default engine,
+its native C++ decoder, frames them (``_record_blocks``); that decoder
+itself is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,14 +25,90 @@ from typing import Callable, Iterator
 import numpy as np
 
 PROGRESS_EVERY_LINES = 1_000_000
+MAX_LINE_ERRORS = 10  # more malformed lines than this abort a file, aligner.rs:161
+_BLOCK = 1 << 20  # decoded bytes framed at a time
+
+
+def _open(path: str):
+    return gzip.open(path, "rb") if path.endswith(".gz") else open(path, "rb")
 
 
 def open_lines(path: str) -> Iterator[bytes]:
-    """Yield raw lines (no trailing newline) from a FASTQ or FASTQ.gz file."""
-    stream = gzip.open(path, "rb") if path.endswith(".gz") else open(path, "rb")
-    with stream:
+    """Yield the lines of a FASTQ(.gz) or FASTA(.gz) file, each without its
+    line ending: one trailing ``\\n`` and one ``\\r`` before it, as Rust's
+    ``lines()`` and the JAX package's native decoder strip them
+    (fastq_reader.cpp:61, :83). Any other ``\\r`` stays in the line."""
+    with _open(path) as stream:
         for line in stream:
-            yield line.rstrip(b"\r\n")
+            if line[-1:] == b"\n":
+                line = line[:-2] if line[-2:-1] == b"\r" else line[:-1]
+            yield line
+
+
+def _is_utf8(line: bytes) -> bool:
+    """Whether a line is valid UTF-8. The strict decoder rejects what the
+    native decoder's ``utf8_valid`` rejects (fastq_reader.cpp:128-157):
+    overlong forms, surrogates, code points above U+10FFFF."""
+    try:
+        line.decode("utf-8")
+    except UnicodeDecodeError:
+        return False
+    return True
+
+
+def _record_blocks(path: str) -> Iterator[list[bytes]]:
+    """The lines of a FASTQ(.gz) file that count toward its 4-line records,
+    in file order, a list for each block of about ``_BLOCK`` bytes; each
+    line is stripped as :func:`open_lines` strips it.
+
+    The reference reads lines as UTF-8 strings and its error arm skips a
+    line that is not, without counting it, so the framing shifts by the
+    skipped lines; more than ``MAX_LINE_ERRORS`` of them abort the file
+    (aligner.rs:155-163; the JAX package's native decoder,
+    fastq_reader.cpp:206-219). A stream error (gzip corruption or
+    truncation, an I/O failure) leaves the stream dead and aborts the file
+    at once. Both raise IOError, which the CLI reports as ``ERROR: ...``.
+    A block is split, stripped and checked by bytes methods; only a block
+    that holds a ``\\r`` or a non-ASCII byte is looked at line by line."""
+    counted = errors = 0
+    tail = b""
+    with _open(path) as stream:
+        while True:
+            try:
+                block = stream.read(_BLOCK)
+            except (OSError, EOFError) as e:
+                raise IOError(
+                    f"Error reading {path} at line {counted}: {e}") from e
+            if not block:
+                break
+            data = tail + block
+            lines = data.split(b"\n")
+            tail = lines.pop()  # the line the next block ends
+            if b"\r" in data:
+                lines = [ln[:-1] if ln[-1:] == b"\r" else ln for ln in lines]
+            if not data.isascii():
+                kept = []
+                for ln in lines:
+                    if ln.isascii() or _is_utf8(ln):
+                        kept.append(ln)
+                        continue
+                    errors += 1
+                    if errors > MAX_LINE_ERRORS:
+                        yield kept
+                        raise _too_many_errors(path, counted + len(kept))
+                lines = kept
+            counted += len(lines)
+            yield lines
+    if tail:  # the last line has no line ending: kept whole
+        if tail.isascii() or _is_utf8(tail):
+            yield [tail]
+        elif errors + 1 > MAX_LINE_ERRORS:  # the last line is one more error
+            raise _too_many_errors(path, counted)
+
+
+def _too_many_errors(path: str, counted: int) -> IOError:
+    return IOError(f"Error reading {path}: Too many read errors "
+                   f"(>{MAX_LINE_ERRORS}), stopping at line {counted}")
 
 
 def iter_read_chunks(
@@ -43,28 +121,20 @@ def iter_read_chunks(
     chunk: list[bytes] = []
     line_count = 0
     total_reads = 0
-    lines = open_lines(path)
-    while True:
-        try:
-            line = next(lines)
-        except StopIteration:
-            break
-        except (OSError, EOFError) as e:
-            # a stream error (gzip corruption, I/O failure) leaves the
-            # generator dead, so it aborts the file
-            raise IOError(f"Error reading {path} at line {line_count}: {e}") from e
-        line_count += 1
-        if line_count % 4 == 2:  # sequence line, aligner.rs:138
-            chunk.append(line)
-            total_reads += 1
-            if len(chunk) >= chunk_size_reads:
-                yield chunk
-                chunk = []
-        if progress and line_count % PROGRESS_EVERY_LINES == 0:
-            progress(
-                f"Read {line_count} lines, found {total_reads} reads, "
-                f"current chunk size: {len(chunk)}"
-            )
+    for lines in _record_blocks(path):
+        for line in lines:
+            line_count += 1
+            if line_count % 4 == 2:  # sequence line, aligner.rs:138
+                chunk.append(line)
+                total_reads += 1
+                if len(chunk) >= chunk_size_reads:
+                    yield chunk
+                    chunk = []
+            if progress and line_count % PROGRESS_EVERY_LINES == 0:
+                progress(
+                    f"Read {line_count} lines, found {total_reads} reads, "
+                    f"current chunk size: {len(chunk)}"
+                )
     if chunk:  # final partial chunk, aligner.rs:167-170
         yield chunk
 
@@ -106,21 +176,23 @@ def iter_flat_chunks_multi(paths, chunk_size_reads: int,
 def iter_read_chunks_with_quals(path: str, chunk_size_reads: int
                                 ) -> Iterator[tuple[list[bytes], list[bytes]]]:
     """Yield (sequences, quality strings) chunks: FASTQ lines 2 and 4 of
-    each record. A chunk closes on the quality line of its last record; a
-    truncated final record gets an EMPTY quality string."""
+    each record, framed as :func:`iter_read_chunks` frames them. A chunk
+    closes on the quality line of its last record; a truncated final
+    record gets an EMPTY quality string."""
     seqs: list[bytes] = []
     quals: list[bytes] = []
     line_count = 0
-    for line in open_lines(path):
-        line_count += 1
-        m = line_count % 4
-        if m == 2:
-            seqs.append(line)
-        elif m == 0:
-            quals.append(line)
-            if len(seqs) >= chunk_size_reads:
-                yield seqs, quals
-                seqs, quals = [], []
+    for lines in _record_blocks(path):
+        for line in lines:
+            line_count += 1
+            m = line_count % 4
+            if m == 2:
+                seqs.append(line)
+            elif m == 0:
+                quals.append(line)
+                if len(seqs) >= chunk_size_reads:
+                    yield seqs, quals
+                    seqs, quals = [], []
     if seqs:
         while len(quals) < len(seqs):  # truncated final record
             quals.append(b"")

@@ -329,10 +329,14 @@ def _moves_operands(rng, B, M, N, device):
 
 
 @pytest.mark.parametrize("B,M,N", [(1000, 152, 184), (33, 37, 50),
-                                   (21, 300, 200), (5, 1, 9)])
+                                   (21, 300, 200), (5, 1, 9), (1, 152, 184),
+                                   (3, 200, 1500)])
 @pytest.mark.parametrize("gaps", [None, (-2, -1), (-3, 0)])
 def test_moves_kernels_match_plain(cuda_device, B, M, N, gaps):
-    """best, bd, bi, positions and the move of every cell."""
+    """best, bd, bi, positions and the move of every cell: moves kept in
+    shared memory (M <= 256), rows past one stripe and windows too long
+    for shared memory (moves in device memory), a last block of one pair,
+    a batch of one."""
     from mini_parallel_tpu_torch.ops import sw_traceback as tb
     from mini_parallel_tpu_torch.ops import sw_traceback_cuda as tbc
 
@@ -351,7 +355,7 @@ def test_moves_kernels_match_plain(cuda_device, B, M, N, gaps):
     torch.cuda.synchronize()
     for g, w in zip(got[:4], (best, bd, bi, pos)):
         assert torch.equal(g, w)
-    assert torch.equal(tbc.moves_to_cells(got[4], M, N),
+    assert torch.equal(tbc.moves_to_cells(got[4], M, N, gaps is not None),
                        tb.plain_moves_to_cells(moves, N))
     n0 = kernel.launches
     routed = (tb.sw_positions_batch_best(a, b) if gaps is None
@@ -463,12 +467,15 @@ def _pairhmm_lanes(rng, B, M, N):
 
 
 @pytest.mark.parametrize("B,M,N", [(1000, 152, 101), (37, 300, 120),
-                                   (64, 40, 200), (5, 1, 7)])
+                                   (64, 40, 200), (5, 1, 7), (1, 152, 101),
+                                   (33, 170, 80)])
 @pytest.mark.parametrize("f64", [False, True])
 def test_pairhmm_kernel_matches_plain(cuda_device, B, M, N, f64):
     """csrc/pairhmm.cu vs the plain pairhmm_batch on the card: the same
     -inf lanes; |Δlog10| <= 1e-4 in float32 (log10f against torch's log10
-    at most), <= 1e-9 in float64."""
+    at most), <= 1e-9 in float64. Two lanes share a warp, so the cases
+    hold lanes of different lengths (and empty ones) side by side, a last
+    warp of one lane (odd B), a batch of one and two stripes (M > 160)."""
     from mini_parallel_tpu_torch.ops import pairhmm, pairhmm_cuda
 
     rng = np.random.default_rng(B + M + N)
@@ -486,7 +493,39 @@ def test_pairhmm_kernel_matches_plain(cuda_device, B, M, N, f64):
     assert got.dtype == dtype
     assert torch.equal(torch.isinf(got), torch.isinf(want))
     fin = torch.isfinite(want)
-    assert float((got[fin] - want[fin]).abs().max()) <= (1e-9 if f64 else 1e-4)
+    if bool(fin.any()):  # a batch of one may hold a single -inf lane
+        assert float((got[fin] - want[fin]).abs().max()) <= \
+            (1e-9 if f64 else 1e-4)
+
+
+@pytest.mark.parametrize("f64", [False, True])
+def test_pairhmm_kernel_mixed_lanes_in_a_warp(cuda_device, f64):
+    """Neighbouring lanes (one warp) of very different read and haplotype
+    lengths, empty reads and empty haplotypes beside full ones: each lane
+    equals the plain version exactly."""
+    from mini_parallel_tpu_torch.ops import pairhmm, pairhmm_cuda
+
+    rng = np.random.default_rng(31)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    shapes = [(150, 101), (1, 1), (3, 200), (150, 101), (0, 50), (150, 7),
+              (40, 0), (150, 101), (2, 160), (150, 3), (299, 101)]
+    reads = [rng.choice(acgt, m).tobytes() for m, _ in shapes]
+    haps = [rng.choice(acgt, n).tobytes() for _, n in shapes]
+    arr_r, la = encode.pad_batch(reads, pad_to=300, pad_value=int(encode.PAD_A))
+    arr_h, lb = encode.pad_batch(haps, pad_to=200, pad_value=int(encode.PAD_B))
+    q = torch.from_numpy(rng.integers(5, 41, arr_r.shape).astype(np.float64))
+    err = torch.where(torch.arange(300)[None, :] < torch.from_numpy(la)[:, None],
+                      pairhmm.phred_error(q), 0)
+    dtype = torch.float64 if f64 else torch.float32
+    args = [torch.from_numpy(arr_r), err.to(dtype), torch.from_numpy(arr_h),
+            torch.from_numpy(la), torch.from_numpy(lb)]
+    args = [t.to(cuda_device) for t in args]
+    kernel = (pairhmm_cuda.pairhmm_f64_batch_cuda if f64
+              else pairhmm_cuda.pairhmm_batch_cuda)
+    got = kernel(*args)
+    want = pairhmm.pairhmm_batch(*args, dtype=dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_pairhmm_log10_padded_on_the_card_matches_cpu(cuda_device):

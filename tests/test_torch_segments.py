@@ -226,3 +226,67 @@ def test_group_size_bounds_the_boundary_buffers():
 def test_group_path_refuses_bad_group_size():
     with pytest.raises(ValueError, match="strips_per_group"):
         sw_long.sw_score_long(b"ACGT", b"ACGT", CPU, strips_per_group=0)
+
+
+# ----------------------------------------------------------------------
+# csrc/sw_moves.cu: the moves layout (plain index math of moves_to_cells)
+# ----------------------------------------------------------------------
+
+
+def _kernel_moves_words(cells: np.ndarray, affine: bool, rng) -> np.ndarray:
+    """The words csrc/sw_moves.cu stores for these per-cell codes, step by
+    step as its lanes do: lane l of stripe s computes row s * 32R + l * R + r
+    at column t - l on step t, shifts the code into the top of its row's
+    word, and stores the word every ``codes`` steps (and a last, partial
+    word shifted down); cells off the matrix store random codes."""
+    from mini_parallel_tpu_torch.ops import sw_traceback_cuda as tbc
+
+    B, M, N = cells.shape
+    R, P, codes, W = tbc.moves_layout(M, N, affine)
+    bits = 32 // codes
+    stripes = -(-M // (32 * R))
+    words = np.zeros((B, stripes, W, 32 * P), np.uint64)
+    for s in range(stripes):
+        for lane in range(32):
+            for r in range(R):
+                i = s * 32 * R + lane * R + r
+                acc = np.zeros(B, np.uint64)
+                for t in range(N + 31):
+                    j = t - lane
+                    code = (cells[:, i, j] if i < M and 0 <= j < N else
+                            rng.integers(0, 1 << bits, B)).astype(np.uint64)
+                    acc = (acc >> np.uint64(bits)) | (code << np.uint64(32 - bits))
+                    if t % codes == codes - 1:
+                        words[:, s, t // codes, lane * P + r] = acc
+                tail = (N + 31) % codes
+                if tail:
+                    words[:, s, (N + 31) // codes, lane * P + r] = \
+                        acc >> np.uint64(bits * (codes - tail))
+    return words.reshape(B, -1).astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("B,M,N", [(3, 37, 50), (2, 152, 184), (2, 300, 40),
+                                   (2, 1, 9), (1, 64, 1)])
+@pytest.mark.parametrize("affine", [False, True])
+def test_moves_words_round_trip_to_cells(B, M, N, affine):
+    """Plain codes -> the kernel's words (stored as the kernel stores them)
+    -> moves_to_cells gives every cell's code back, at one and two
+    stripes, a partial last word and one row; the words a pair takes are
+    moves_words_per_pair."""
+    from mini_parallel_tpu_torch.ops import sw_traceback as tb
+    from mini_parallel_tpu_torch.ops import sw_traceback_cuda as tbc
+
+    rng = np.random.default_rng(B * M + N)
+    a, _ = encode.pad_batch([random_dna(rng, int(rng.integers(1, M + 1)))
+                             for _ in range(B)], pad_to=M,
+                            pad_value=int(encode.PAD_A))
+    b, _ = encode.pad_batch([random_dna(rng, N) for _ in range(B)], pad_to=N,
+                            pad_value=int(encode.PAD_B))
+    ta, tb_ = torch.from_numpy(a), torch.from_numpy(b)
+    moves = (tb.sw_affine_moves_batch(ta, tb_, -3, -1) if affine
+             else tb.sw_moves_batch(ta, tb_))[3]
+    cells = tb.plain_moves_to_cells(moves, N)
+    words = _kernel_moves_words(cells.numpy(), affine, rng)
+    assert words.shape == (B, tbc.moves_words_per_pair(M, N, affine))
+    got = tbc.moves_to_cells(torch.from_numpy(words), M, N, affine)
+    assert torch.equal(got, cells)
