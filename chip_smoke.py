@@ -6,9 +6,12 @@
 Phases, one line or more each; any failure raises and exits non-zero:
 
 1. Card: name and power limit (nvidia-smi), torch and CUDA versions; build
-   the seven kernel sources of mini_parallel_tpu_torch/csrc (one nvcc each,
-   started together) and report their build seconds and ptxas's register
-   counts.
+   the seven kernel sources of mini_parallel_tpu_torch/csrc (one nvcc each)
+   and the three host libraries of mini_parallel_tpu_torch/native (one g++
+   each: the FASTQ decoder, the 2-bit packer, the k-mer store), all started
+   together, and report their build seconds, where they went and ptxas's
+   register counts. Every read path below (phases 4, 8, 13, 14, 18, 19)
+   prints the FASTQ engine its "auto" resolved to, and must be native.
 2. SW kernel vs plain PyTorch version on the card, exact integer equality:
    the main path's shape (10,000 seeded pairs x 150 bp, padded to 152),
    ragged geometries (M != N, B not a multiple of the block, empty rows,
@@ -100,6 +103,21 @@ Phases, one line or more each; any failure raises and exits non-zero:
     int32 peak beside the estimate, and sw_score's share of both.
 17. Each kernel's share of its bound (int32 kernels: also of the measured
     chain instruction rate).
+18. The native host data plane: the three g++ builds; the native FASTQ
+    decoder == the Python engine on phase 4's four files and phase 9's two
+    465,000-read lanes in the flat and the quality streams (and the list
+    streams on phase 4's files); the native packer == the NumPy packer on
+    a phase-4 chunk; decode-only seconds and reads/s per engine and
+    pack-only ms per packer, interleaved (A, B, A, B..., medians of 3);
+    then --full-wgs (sw, kadane) and --variant-prep --gapped reads/s on
+    the default (native) plane and on the Python plane.
+19. ``--kmer`` on the card: phase 9's two lanes (930,000 reads, k = 21) in
+    summary mode and with --kmer-out (full drain): reads/s, distinct
+    k-mers, drain ms and bytes, write_counts seconds; summary == full on
+    distinct, histogram and top 10; lane 1's dump on the card == on the
+    CPU, byte for byte; a forced spill (capacity below the distinct count)
+    == the unspilled counts; --canonical at k = 21 and k = 31 on a
+    20,000-read subset == count_kmers_python exactly.
 
 Then one JSON line of kernel results (each with its bound: see
 tools/roofline.py), the nvidia-smi line, and last
@@ -108,6 +126,7 @@ tools/roofline.py), the nvidia-smi line, and last
 
 from __future__ import annotations
 
+import contextlib
 import gzip
 import json
 import os
@@ -176,7 +195,7 @@ def phase_card():
 
     import torch
 
-    from mini_parallel_tpu_torch import _build
+    from mini_parallel_tpu_torch import _build, native
     from mini_parallel_tpu_torch.device import device_info
     from mini_parallel_tpu_torch.ops import (
         pairhmm_cuda,
@@ -197,10 +216,17 @@ def phase_card():
             (pairhmm_cuda.KERNEL_NAME, pairhmm_cuda.KERNEL_SOURCES),
             (roofline.KERNEL_NAME, roofline.KERNEL_SOURCES)]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(libs)) as pool:
+    with ThreadPoolExecutor(len(libs) + len(native.LIBRARIES)) as pool:
+        host = pool.map(native.build, native.LIBRARIES)
         built = list(pool.map(lambda lib: _build.build(*lib), libs))
-    print(f"[1 build] {len(libs)} sources in parallel: "
-          f"{time.perf_counter() - t0:.2f} s wall", flush=True)
+        info["native_builds"] = dict(zip(native.LIBRARIES, host))
+    print(f"[1 build] {len(libs)} CUDA sources and {len(native.LIBRARIES)} "
+          f"host libraries in parallel: {time.perf_counter() - t0:.2f} s "
+          "wall", flush=True)
+    for name, (path, seconds) in info["native_builds"].items():
+        check(path.is_file(), f"host library {path} missing after build")
+        native.load(name)
+        print(f"[1 build] g++ {name}: {seconds:.2f} s -> {path}", flush=True)
     for path, seconds in built:
         check(path.is_file(), f"kernel library {path} missing after build")
         print(f"[1 build] {path.name}: {seconds:.2f} s", flush=True)
@@ -347,6 +373,15 @@ def run_cli(mode: str, env_path: str, results_dir: str):
     return row, wall, lines
 
 
+def report_engine(phase: int) -> None:
+    """The FASTQ engine the read paths' "auto" resolves to: native here."""
+    from mini_parallel_tpu_torch.io import fastq
+
+    engine = fastq.resolved_engine("auto")
+    print(f"[{phase} engine] FASTQ engine auto -> {engine}", flush=True)
+    check(engine == "native", f"the read paths run the {engine} engine")
+
+
 def phase_main_path(rng, tmp: str):
     """Returns the kernel launches of the sw run and the fixture facts the
     later phases reuse: (launches, env path, results dir, total bases)."""
@@ -354,6 +389,7 @@ def phase_main_path(rng, tmp: str):
 
     from mini_parallel_tpu_torch.ops import sw_cuda
 
+    report_engine(4)
     cwd = os.getcwd()
     t0 = time.perf_counter()
     total_bases, big_chunks = write_fixtures(rng, tmp, "SMOKE")
@@ -797,6 +833,7 @@ def phase_slice_paths(rng, tmp: str, env_path: str, results_dir: str,
 
     from mini_parallel_tpu_torch.ops import sw_cuda, sw_long
 
+    report_engine(8)
     counters = (sw_cuda.sw_score_batch_cuda, sw_cuda.sw_affine_batch_cuda,
                 sw_long.sw_strip_cuda, sw_long.sw_affine_strip_cuda)
 
@@ -1453,6 +1490,7 @@ def phase_variant_paths(fx: dict, env_path: str, tmp: str, device) -> dict:
     from mini_parallel_tpu_torch.ops import sw_traceback_cuda as tbc
     from mini_parallel_tpu_torch.utils.config import Config
 
+    report_engine(13)
     counters = {"sw_vs_ref": sw_cuda.sw_vs_ref_batch_cuda,
                 "sw_moves": tbc.sw_moves_batch_cuda,
                 "sw_affine_moves": tbc.sw_affine_moves_batch_cuda}
@@ -1627,6 +1665,7 @@ def phase_genotype(fx: dict, env_path: str, device) -> dict:
     from mini_parallel_tpu_torch.models import variant_prep as vp
     from mini_parallel_tpu_torch.ops import pairhmm_cuda
 
+    report_engine(14)
     counters = {"pairhmm": pairhmm_cuda.pairhmm_batch_cuda,
                 "pairhmm_f64": pairhmm_cuda.pairhmm_f64_batch_cuda}
     captured, walls = [], []
@@ -1910,6 +1949,338 @@ def phase_roofline(device) -> dict:
             "peak_instr": instr}
 
 
+# ---------------------------------------------------------------------------
+# The native host data plane (mini_parallel_tpu_torch/native: the FASTQ
+# decoder, the 2-bit packer) and --kmer
+# ---------------------------------------------------------------------------
+
+INTERLEAVE = 3  # turns of each engine or packer, A, B, A, B...
+PACKS_PER_TURN = 10
+KMER_SUBSET_READS = 20_000
+
+
+def _equal(x, y) -> bool:
+    if isinstance(x, tuple):
+        return (isinstance(y, tuple) and len(x) == len(y)
+                and all(map(_equal, x, y)))
+    if isinstance(x, np.ndarray):
+        return (isinstance(y, np.ndarray) and x.dtype == y.dtype
+                and np.array_equal(x, y))
+    return x == y
+
+
+def same_stream(a, b, what: str) -> int:
+    """Two chunk streams equal, chunk by chunk; returns the chunk count."""
+    import itertools
+
+    n = 0
+    for x, y in itertools.zip_longest(a, b):
+        check(x is not None and y is not None,
+              f"{what}: the engines yield different chunk counts")
+        check(_equal(x, y), f"{what}: chunk {n} differs between the engines")
+        n += 1
+    return n
+
+
+class python_plane:
+    """The read paths' "auto" FASTQ engine set to python and the packer
+    to NumPy for the duration of a ``with`` block."""
+
+    def __enter__(self):
+        from mini_parallel_tpu_torch.io import fastq
+        from mini_parallel_tpu_torch.ops import packed
+
+        self.saved = fastq._auto_engine, packed._native_lib
+        fastq._auto_engine = lambda: "python"
+        packed._native_lib = lambda: None
+        return self
+
+    def __exit__(self, *exc):
+        from mini_parallel_tpu_torch.io import fastq
+        from mini_parallel_tpu_torch.ops import packed
+
+        fastq._auto_engine, packed._native_lib = self.saved
+
+
+def phase_native_plane(info: dict, tmp: str, env_path: str, results_dir: str,
+                       total_bases: int, fx: dict) -> dict:
+    """The decoder and the packer held to the Python engine and NumPy; the
+    decode-only and pack-only times per engine, interleaved; the read
+    paths' reads/s on the native and the Python plane."""
+    import shutil
+
+    from mini_parallel_tpu_torch.io import fastq
+    from mini_parallel_tpu_torch.ops import encode, packed
+
+    report_engine(18)
+    for name, (path, seconds) in info["native_builds"].items():
+        print(f"[18 build] g++ {name}: {seconds:.2f} s ({path.name})",
+              flush=True)
+    wgs = [os.path.join(tmp, f"SMOKE_L{lane:03d}_R{read}_001.fastq.gz")
+           for lane in (1, 2) for read in (1, 2)]
+    lanes = [fx["L1"], fx["L2"]]
+    streams = {"flat": fastq.iter_flat_chunks,
+               "flat quals": fastq.iter_flat_chunks_with_quals,
+               "reads": fastq.iter_read_chunks,
+               "quals": fastq.iter_read_chunks_with_quals}
+    t0 = time.perf_counter()
+    chunks = 0
+    for path in wgs + lanes:
+        for kind, stream in streams.items():
+            if path in lanes and kind in ("reads", "quals"):
+                continue
+            chunks += same_stream(
+                stream(path, CHUNK_READS, engine="native"),
+                stream(path, CHUNK_READS, engine="python"),
+                f"{kind} {os.path.basename(path)}")
+    print(f"[18 decoder] native == python on {len(wgs)} + {len(lanes)} files"
+          f" ({4 * FILE_READS + 2 * VP_LANE_READS} reads): {chunks} chunks "
+          "of the flat and flat-quality streams, and of the list streams on "
+          f"phase 4's files, equal | {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    stream = fastq.iter_flat_chunks(wgs[2], CHUNK_READS)  # the ragged file
+    flat, offs = next(stream)
+    stream.close()
+    arr, lens = encode.pad_batch_flat(flat, offs, pad_to=MAIN_PAD,
+                                      pad_value=int(encode.PAD_A))
+    a, b = packed.pack_batch_native(arr, lens), packed.pack_batch_numpy(
+        arr, lens)
+    check(a.length == b.length and all(
+        _equal(getattr(a, f), getattr(b, f))
+        for f in ("packed", "exc_col", "exc_val", "lengths")),
+        "the native packer differs from the NumPy packer")
+    print(f"[18 packer] native == numpy on a {arr.shape[0]} x {arr.shape[1]} "
+          f"chunk ({int((a.exc_col < a.length).sum())} exceptions, K = "
+          f"{a.exc_col.shape[1]})", flush=True)
+
+    def decode(engine: str) -> float:
+        t = time.perf_counter()
+        for _ in fastq.iter_flat_chunks_multi(wgs, CHUNK_READS,
+                                              engine=engine):
+            pass
+        return time.perf_counter() - t
+
+    def pack(fn) -> float:
+        t = time.perf_counter()
+        for _ in range(PACKS_PER_TURN):
+            fn(arr, lens)
+        return (time.perf_counter() - t) / PACKS_PER_TURN * 1e3
+
+    out = {}
+    for label, runs, unit, reads in (
+            ("decode", {"native": lambda: decode("native"),
+                        "python": lambda: decode("python")}, "s",
+             4 * FILE_READS),
+            ("pack", {"native": lambda: pack(packed.pack_batch_native),
+                      "numpy": lambda: pack(packed.pack_batch_numpy)}, "ms",
+             None)):
+        samples = {k: [] for k in runs}
+        for _ in range(INTERLEAVE):
+            for k, fn in runs.items():
+                samples[k].append(fn())
+        for k, xs in samples.items():
+            med = statistics.median(xs)
+            out[f"{label}_{k}"] = med
+            rate = f", {reads / med:.0f} reads/s" if reads else ""
+            print(f"[18 {label}] {k}: {med:.4f} {unit} median of {len(xs)} "
+                  f"interleaved ({', '.join(f'{x:.4f}' for x in xs)}){rate}"
+                  + (f" | {len(wgs)} files x {FILE_READS} reads, flat stream"
+                     if reads else f" | {arr.shape[0]} x {arr.shape[1]}"),
+                  flush=True)
+
+    cwd = os.getcwd()
+    run_dir = os.path.join(tmp, "p18")
+    sample = [fx["L1"], fx["L2"]]
+    totals = {}
+    try:
+        for plane in ("native", "python"):
+            with (python_plane() if plane == "python"
+                  else contextlib.nullcontext()):
+                for mode in ("sw", "kadane"):
+                    shutil.rmtree(run_dir, ignore_errors=True)
+                    os.makedirs(run_dir)
+                    os.chdir(run_dir)  # no checkpoint of an earlier run
+                    row, wall, _ = run_cli(mode, env_path, results_dir)
+                    rate = row["throughput_reads_per_second"]
+                    out[f"full_wgs_{mode}_{plane}"] = rate
+                    print(f"[18 read paths] {plane} plane: --full-wgs --mode "
+                          f"{mode} {rate:.0f} reads/s (run "
+                          f"{row['total_time_seconds']:.2f} s, wall "
+                          f"{wall:.2f} s), score {row['total_score']}",
+                          flush=True)
+                    totals.setdefault(mode, set()).add(
+                        (row["total_score"], row["total_bases"]))
+                lines, wall = cli_lines(["--variant-prep", ",".join(sample),
+                                         "--reference", fx["ref"], "--env",
+                                         env_path, "--gapped"])
+                rate = 2 * VP_LANE_READS / wall
+                out[f"variant_prep_gapped_{plane}"] = rate
+                sites = line_value(lines, "Candidate variant sites:")
+                totals.setdefault("vp", set()).add(sites)
+                print(f"[18 read paths] {plane} plane: --variant-prep "
+                      f"--gapped {rate:.0f} reads/s ({wall:.2f} s), {sites} "
+                      "candidates", flush=True)
+    finally:
+        os.chdir(cwd)
+    check(all(len(v) == 1 for v in totals.values()),
+          f"the planes' read paths disagree: {totals}")
+    check(totals["sw"] == {(2 * total_bases, total_bases)},
+          "--full-wgs sw total != 2 x bases")
+    return out
+
+
+def phase_kmer(tmp: str, fx: dict, env_path: str, device) -> dict:
+    """--kmer on phase 9's two lanes, summary and full; lane 1 on the card
+    == on the CPU; a forced spill; --canonical at k = 21 and 31 on a
+    subset against count_kmers_python."""
+    import hashlib
+
+    import torch
+
+    from mini_parallel_tpu_torch.io import fastq
+    from mini_parallel_tpu_torch.models import kmer_model as km
+    from mini_parallel_tpu_torch.ops import kmer
+    from mini_parallel_tpu_torch.utils.config import Config
+
+    report_engine(19)
+    Acc, Eng, Res = (kmer.DeviceKmerAccumulator, km.KmerEngine,
+                     km.KmerResult)
+    saved = (Acc.drain, Acc.summary, Eng.count_file, Eng._new_accumulator,
+             Res.write_counts)
+    fetches, results, accs, writes = [], [], [], []
+
+    def drain(self):
+        self.flush()  # the last fold is not the drain
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        keys, counts = saved[0](self)
+        fetches.append(("drain", time.perf_counter() - t,
+                        keys.nbytes + counts.nbytes))
+        return keys, counts
+
+    def summary(self, *a, **kw):
+        self.flush()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s = saved[1](self, *a, **kw)
+        fetches.append(("summary", time.perf_counter() - t, 0 if s is None
+                        else s["hist"].nbytes + 16 * len(s["top"])))
+        return s
+
+    def count_file(self, *a, **kw):
+        results.append(saved[2](self, *a, **kw))
+        return results[-1]
+
+    def new_accumulator(self):
+        accs.append(saved[3](self))
+        return accs[-1]
+
+    def write_counts(self, path):
+        t = time.perf_counter()
+        n = saved[4](self, path)
+        writes.append(time.perf_counter() - t)
+        return n
+
+    def digest(path: str) -> tuple[str, int]:
+        with open(path, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest(), os.path.getsize(path)
+
+    (Acc.drain, Acc.summary, Eng.count_file, Eng._new_accumulator,
+     Res.write_counts) = (drain, summary, count_file, new_accumulator,
+                          write_counts)
+    out = {}
+    try:
+        sample = f"{fx['L1']},{fx['L2']}"
+        n_reads = 2 * VP_LANE_READS
+        env = ["--env", env_path]
+        regimes = {}
+        for label, extra in (("kmer_k21_summary", []),
+                             ("kmer_k21_full_drain",
+                              ["--kmer-out", os.path.join(tmp, "k21.tsv")])):
+            fetches.clear()
+            writes.clear()
+            lines, wall = cli_lines(["--kmer", sample, *env, *extra])
+            res = results[-1]
+            kind, sec, nbytes = fetches[-1]
+            w = f"{writes[0]:.2f} s" if writes else "none"
+            rate = n_reads / res.seconds
+            out[label] = {"reads_per_s": rate, "distinct": res.distinct_kmers,
+                          "fetch_ms": 1e3 * sec, "fetch_bytes": nbytes,
+                          "write_s": writes[0] if writes else None}
+            print(f"[19 {label}] {rate:.0f} reads/s (count {res.seconds:.2f}"
+                  f" s, wall {wall:.2f} s) | {res.total_kmers} k-mers, "
+                  f"{res.distinct_kmers} distinct | {kind} "
+                  f"{1e3 * sec:.2f} ms, {nbytes} bytes | write_counts {w}",
+                  flush=True)
+            regimes[label] = res, [ln for ln in lines if ln.startswith("  ")]
+        (summ, summ_top), (full, full_top) = regimes.values()
+        check(summ.arrays == () and len(full.arrays) == 2,
+              "summary mode drained the table, or full mode did not")
+        check(summ.total_kmers == full.total_kmers == n_reads * (
+            VP_READ_LEN - 20), "the k-mer total is not every window")
+        check(summ.distinct_kmers == full.distinct_kmers
+              and np.array_equal(summ.histogram(64), full.histogram(64))
+              and summ.top(10) == full.top(10) and summ_top == full_top,
+              "summary != full (distinct, histogram or top 10)")
+        hist = full.histogram(64)
+        print(f"[19 summary == full] distinct {full.distinct_kmers}, "
+              f"histogram counts 1-8 {hist[:8].tolist()}, tail "
+              f"{int(hist[-1])}, top {full.top(1)}", flush=True)
+
+        dumps = {}
+        for where in ("card", "cpu"):
+            path = os.path.join(tmp, f"k21_L1_{where}.tsv")
+            lines, wall = cli_lines(["--kmer", fx["L1"], *env, "--kmer-out",
+                                     path] + (["--allow-cpu"] if where == "cpu"
+                                              else []))
+            dumps[where] = digest(path)
+            print(f"[19 lane 1 {where}] {VP_LANE_READS / wall:.0f} reads/s "
+                  f"({wall:.2f} s), {line_value(lines, 'Distinct 21-mers:')}"
+                  f" distinct, dump {dumps[where][1]} bytes, sha256 "
+                  f"{dumps[where][0][:16]}", flush=True)
+        check(dumps["card"] == dumps["cpu"], "lane 1: card dump != CPU dump")
+
+        cap = full.distinct_kmers // 3
+        accs.clear()
+        fetches.clear()
+        t = time.perf_counter()
+        spilled = km.KmerEngine(Config(chunk_size_reads=CHUNK_READS),
+                                device_capacity=cap, device=device
+                                ).count_file([fx["L1"], fx["L2"]])
+        wall = time.perf_counter() - t
+        check(any(a.spilled for a in accs), "the forced run did not spill")
+        check(np.array_equal(spilled.arrays[0], full.arrays[0])
+              and np.array_equal(spilled.arrays[1], full.arrays[1]),
+              "the spilled counts differ from the unspilled ones")
+        print(f"[19 spill] capacity {cap}: spilled, counts == unspilled "
+              f"({spilled.distinct_kmers} distinct) | {n_reads / wall:.0f} "
+              f"reads/s ({wall:.2f} s), drain incl. the spill folds "
+              f"{1e3 * fetches[-1][1]:.2f} ms", flush=True)
+
+        stream = fastq.iter_read_chunks(fx["L1"], KMER_SUBSET_READS)
+        reads = next(stream)
+        stream.close()
+        subset = os.path.join(tmp, "kmer_subset.fastq.gz")
+        fastq.write_fastq(subset, reads)
+        for k in (21, 31):
+            path = os.path.join(tmp, f"subset_k{k}.tsv")
+            cli_lines(["--kmer", subset, *env, "-k", str(k), "--canonical",
+                       "--kmer-out", path])
+            with open(path) as f:
+                got = [ln.rstrip("\n").split("\t") for ln in f]
+            golden = kmer.count_kmers_python(reads, k, canonical=True)
+            check([(s, int(c)) for s, c in got] == sorted(golden.items()),
+                  f"--canonical k={k} != count_kmers_python")
+            print(f"[19 canonical k={k}] {KMER_SUBSET_READS} reads: "
+                  f"{len(got)} distinct == count_kmers_python, in k-mer "
+                  "order", flush=True)
+    finally:
+        (Acc.drain, Acc.summary, Eng.count_file, Eng._new_accumulator,
+         Res.write_counts) = saved
+    return out
+
+
 def report_shares(kernels: list[dict], peak_instr: float) -> None:
     """Each kernel's time against its bound; for the int32 kernels also
     against the measured ceiling: the chain's instruction rate in place of
@@ -1985,6 +2356,8 @@ def main() -> int:
         vp_launches = phase_variant_paths(fx, env_path, tmp, device)
         genotype = phase_genotype(fx, env_path, device)
         phmm = phase_pairhmm_compare(rng, genotype.pop("operand"), device)
+        phase_native_plane(info, tmp, env_path, results_dir, total_bases, fx)
+        phase_kmer(tmp, fx, env_path, device)
     chain = phase_roofline(device)
     main_cells = float(MAIN_B) * MAIN_LEN * MAIN_LEN
     main_bytes = float(2 * MAIN_B * MAIN_PAD + 4 * MAIN_B)

@@ -4,7 +4,8 @@ Each library is compiled at first use into ``_build/`` (listed in
 .gitignore), keyed by a hash of its sources and flags, into a shared
 library with a plain C interface that ``ctypes`` loads. There is no
 fallback: without nvcc the build raises :class:`BuildError`, and the
-caller's CUDA tensor goes nowhere else.
+caller's CUDA tensor goes nowhere else. The host C++ libraries of
+``native/`` are built by g++ through the same :func:`compile_library`.
 """
 
 from __future__ import annotations
@@ -61,24 +62,33 @@ def build(name: str, sources: tuple[str, ...]) -> tuple[Path, float]:
     out = library_path(name, sources)
     if out.is_file():
         return out, 0.0
-    nvcc = find_nvcc()
+    cmd = [find_nvcc(), *NVCC_FLAGS, *(str(CSRC / s) for s in sources)]
+    return out, compile_library(cmd, out, name)
+
+
+def compile_library(cmd: list[str], out: Path, name: str) -> float:
+    """Run the compiler command ``cmd`` with ``-o <temporary file>``
+    appended, then move the library to ``out`` atomically, so that processes
+    building the same library at once each see all of it or none. Keeps the
+    compiler's report beside it as ``<out>.log``; returns the seconds the
+    compiler took. A failure raises BuildError with the compiler's output."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in sources)]
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.run([*cmd, "-o", tmp], capture_output=True,
+                              text=True)
         if proc.returncode != 0:
             raise BuildError(
-                f"nvcc failed ({proc.returncode}) building {name}:\n"
-                f"{proc.stdout}{proc.stderr}")
+                f"{Path(cmd[0]).name} failed ({proc.returncode}) building "
+                f"{name}:\n{proc.stdout}{proc.stderr}")
         out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return out, time.perf_counter() - t0
+    return time.perf_counter() - t0
 
 
 @functools.lru_cache(maxsize=None)

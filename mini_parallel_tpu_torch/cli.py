@@ -3,12 +3,13 @@
 The flag surface is the JAX package's (itself ``smith_waterman/src/main.rs:11-46``
 plus its additions). Ported: ``--full-wgs``, ``--test-wgs``, direct
 ``-1/-2`` pairs of any length, ``--files`` pair mode, ``--complementarity``,
-``--long-align`` and ``--variant-prep`` (with ``--gapped``, ``--gap-model``,
+``--long-align``, ``--variant-prep`` (with ``--gapped``, ``--gap-model``,
 ``--rescue``, ``--min-base-quality``, ``--genotype``, ``--vcf-out``,
-``--sam-out`` and ``--prep-checkpoint``), in every ``--mode`` (kadane, sw,
-sw-affine, contiguous), with ``--allow-cpu``, ``--env``, ``--chunk-size``
-and ``--retries``. ``--kmer``, ``--profile`` and ``MPT_MESH_SHAPE`` are
-accepted and exit 2 with "not yet ported".
+``--sam-out`` and ``--prep-checkpoint``) and ``--kmer`` (with ``-k``,
+``--canonical``, ``--kmer-out`` and ``--kmer-checkpoint``), in every
+``--mode`` (kadane, sw, sw-affine, contiguous), with ``--allow-cpu``,
+``--env``, ``--chunk-size`` and ``--retries``. ``--profile`` and
+``MPT_MESH_SHAPE`` are accepted and exit 2 with "not yet ported".
 
     python -m mini_parallel_tpu_torch --full-wgs --mode sw
     python -m mini_parallel_tpu_torch --files -1 R1.fastq.gz -2 R2.fastq.gz
@@ -16,6 +17,8 @@ accepted and exit 2 with "not yet ported".
     python -m mini_parallel_tpu_torch --long-align -1 a.fa -2 b.fa --mode sw-affine
     python -m mini_parallel_tpu_torch --variant-prep L1.fastq.gz,L2.fastq.gz \
         --reference ref.fa --gapped --gap-model affine --genotype --vcf-out calls.vcf
+    python -m mini_parallel_tpu_torch --kmer L1.fastq.gz,L2.fastq.gz -k 21 \
+        --canonical --kmer-out counts.tsv
 
 A CUDA device is mandatory, as the reference's GPU was (main.rs:76-79),
 unless ``--allow-cpu`` asks for the CPU explicitly.
@@ -32,7 +35,6 @@ from mini_parallel_tpu_torch.utils import config as config_mod
 
 # mode flags of the JAX package that this package does not run yet
 _NOT_PORTED = (
-    ("kmer", "--kmer"),
     ("profile", "--profile"),
 )
 
@@ -42,8 +44,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="mini_parallel_tpu_torch",
         description="Sequence alignment and variant-call prep on one CUDA "
         "GPU: the PyTorch port of mini_parallel_tpu (--full-wgs, --test-wgs, "
-        "--files, --complementarity, --long-align, --variant-prep, direct "
-        "pairs).",
+        "--files, --complementarity, --long-align, --variant-prep, --kmer, "
+        "direct pairs).",
     )
     p.add_argument("-1", "--seq1", help="first sequence (or file path with --files)")
     p.add_argument("-2", "--seq2", help="second sequence (or file path with --files)")
@@ -65,7 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "sw=true Smith-Waterman, sw-affine=affine gaps (Gotoh), "
                    "contiguous=exact contiguous Kadane")
     p.add_argument("--kmer", metavar="FASTQ[,FASTQ...]",
-                   help="count k-mers (not yet ported)")
+                   help="count k-mers exactly in the comma-separated lanes")
     p.add_argument("-k", "--kmer-size", type=int, default=21,
                    help="k for --kmer (default 21)")
     p.add_argument("--canonical", action="store_true",
@@ -155,10 +157,13 @@ def main(argv: list[str] | None = None, echo=print) -> int:
                 ok = False
         return 0 if ok else 1
 
-    if not (args.full_wgs or args.variant_prep or (args.seq1 and args.seq2)):
-        if args.complementarity:
-            echo("ERROR: --complementarity requires -1 R1.fastq.gz -2 R2.fastq.gz")
-        elif args.long_align:
+    if args.complementarity and not (args.full_wgs or args.variant_prep or (
+            args.seq1 and args.seq2)):
+        echo("ERROR: --complementarity requires -1 R1.fastq.gz -2 R2.fastq.gz")
+        return 2
+    if not (args.full_wgs or args.variant_prep or args.kmer
+            or (args.seq1 and args.seq2)):
+        if args.long_align:
             echo("ERROR: --long-align requires -1 a.fasta -2 b.fasta")
         elif args.files:
             echo("ERROR: --files requires --seq1 and --seq2 file paths")
@@ -196,6 +201,8 @@ def main(argv: list[str] | None = None, echo=print) -> int:
         return _variant_prep(args, cfg, device, echo)
     if args.complementarity:
         return _complementarity(args, cfg, device, echo)
+    if args.kmer:
+        return _kmer(args, cfg, device, echo)
     if args.long_align:
         return _long_align(args, cfg, device, echo)
     if args.files:  # main.rs:170-182
@@ -286,6 +293,36 @@ def _complementarity(args, cfg, device, echo) -> int:
     echo(f"Perfectly complementary: {res.perfect_pairs}")
     echo(f"Non-complementary: {res.pct_non_complementary:.2f} %")
     echo(f"Time: {res.seconds:.2f} s")
+    return 0
+
+
+def _kmer(args, cfg, device, echo) -> int:
+    from mini_parallel_tpu_torch.models.kmer_model import KmerEngine
+
+    eng = KmerEngine(cfg, k=args.kmer_size, canonical=args.canonical,
+                     device=device)
+    try:
+        paths = args.kmer.split(",")
+        res = eng.count_file(
+            paths if len(paths) > 1 else paths[0], progress=echo,
+            checkpoint_path=args.kmer_checkpoint,
+            checkpoint_every=args.kmer_checkpoint_every,
+            # the full table is drained only when something consumes it:
+            # the dump or the checkpoints' host folds
+            result_mode=("full" if args.kmer_out or args.kmer_checkpoint
+                         else "summary"),
+        )
+    except (OSError, IOError, ValueError) as e:
+        echo(f"ERROR: {e}")
+        return 1
+    echo(f"Total {res.k}-mers: {res.total_kmers}")
+    echo(f"Distinct {res.k}-mers: {res.distinct_kmers}")
+    echo(f"Reads: {res.total_reads}, time: {res.seconds:.2f} s")
+    for s, c in res.top(10):
+        echo(f"  {s}  {c}")
+    if args.kmer_out:
+        n = res.write_counts(args.kmer_out)
+        echo(f"Counts: {n} records -> {args.kmer_out}")
     return 0
 
 

@@ -10,13 +10,25 @@ chunk is still yielded (aligner.rs:167-170). gzip decodes in-process.
 
 Multi-file streams (a sample's lanes, in order) and the quality-aware
 stream of ``--variant-prep --min-base-quality`` follow the JAX package's
-stream functions. Records are framed as the JAX package's default engine,
-its native C++ decoder, frames them (``_record_blocks``); that decoder
-itself is not ported yet.
+stream functions. Each stream takes an ``engine``, as the JAX package's do:
+
+- ``"native"``: the C++ decoder (native/fastq_reader.cpp), which inflates
+  gzip and frames records on its own thread outside the interpreter lock;
+  it must build and load, or the stream raises BuildError;
+- ``"python"``: gzip and ``_record_blocks`` in this module, which frame
+  records exactly as the native decoder does;
+- ``"auto"`` (the default): native when its library builds and loads,
+  else python, decided once per process (:func:`resolved_engine`).
+
+An engine is chosen before a stream's first chunk and never changes after
+it: falling back once a chunk has reached the caller would read the file
+again from its start. The native engine reports no progress lines, as in
+the JAX package.
 """
 
 from __future__ import annotations
 
+import functools
 import gzip
 import queue
 import threading
@@ -24,9 +36,35 @@ from typing import Callable, Iterator
 
 import numpy as np
 
+from mini_parallel_tpu_torch.native import BuildError, fastq_native
+
 PROGRESS_EVERY_LINES = 1_000_000
 MAX_LINE_ERRORS = 10  # more malformed lines than this abort a file, aligner.rs:161
 _BLOCK = 1 << 20  # decoded bytes framed at a time
+ENGINES = ("auto", "native", "python")
+
+
+@functools.lru_cache(maxsize=None)
+def _auto_engine() -> str:
+    try:
+        fastq_native.load()
+    except BuildError:
+        return "python"
+    return "native"
+
+
+def resolved_engine(engine: str = "auto") -> str:
+    """The engine that a stream asked for ``engine`` runs: ``"native"`` or
+    ``"python"``. ``"native"`` raises BuildError when the decoder cannot be
+    built or loaded; ``"auto"`` is native when it can, else python."""
+    if engine == "python":
+        return engine
+    if engine == "native":
+        fastq_native.load()
+        return engine
+    if engine == "auto":
+        return _auto_engine()
+    raise ValueError(f"unknown FASTQ engine {engine!r}; one of {ENGINES}")
 
 
 def _open(path: str):
@@ -115,9 +153,13 @@ def iter_read_chunks(
     path: str,
     chunk_size_reads: int,
     progress: Callable[[str], None] | None = None,
+    engine: str = "auto",
 ) -> Iterator[list[bytes]]:
     """Yield lists of sequence lines, ``chunk_size_reads`` at a time
     (``process_fastq_file_in_chunks``, aligner.rs:107-178, as a generator)."""
+    if resolved_engine(engine) == "native":
+        yield from fastq_native.iter_reads_native(path, chunk_size_reads)
+        return
     chunk: list[bytes] = []
     line_count = 0
     total_reads = 0
@@ -143,12 +185,18 @@ def iter_flat_chunks(
     path: str,
     chunk_size_reads: int,
     progress: Callable[[str], None] | None = None,
+    engine: str = "auto",
 ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
     """Yield chunks as flat (bytes, offsets) NumPy pairs: read i of a chunk
     is ``flat[offs[i]:offs[i+1]]`` (offs[0] == 0, offs[-1] == flat.size,
     int64). Chunk boundaries are those of :func:`iter_read_chunks`, so
     chunk-index checkpoints interoperate."""
-    for chunk in iter_read_chunks(path, chunk_size_reads, progress=progress):
+    if resolved_engine(engine) == "native":
+        yield from fastq_native.iter_read_chunks_native(path,
+                                                        chunk_size_reads)
+        return
+    for chunk in iter_read_chunks(path, chunk_size_reads, progress=progress,
+                                  engine="python"):
         yield _flatten_rows(chunk)
 
 
@@ -166,19 +214,25 @@ def _over_paths(chunks: Callable, paths, *args, **kwargs) -> Iterator:
 
 
 def iter_flat_chunks_multi(paths, chunk_size_reads: int,
-                           progress: Callable[[str], None] | None = None
+                           progress: Callable[[str], None] | None = None,
+                           engine: str = "auto"
                            ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
-    """Flat chunk stream over a file list."""
+    """Flat chunk stream over a file list, every file on one engine."""
     return _over_paths(iter_flat_chunks, paths, chunk_size_reads,
-                       progress=progress)
+                       progress=progress, engine=resolved_engine(engine))
 
 
-def iter_read_chunks_with_quals(path: str, chunk_size_reads: int
+def iter_read_chunks_with_quals(path: str, chunk_size_reads: int,
+                                engine: str = "auto"
                                 ) -> Iterator[tuple[list[bytes], list[bytes]]]:
     """Yield (sequences, quality strings) chunks: FASTQ lines 2 and 4 of
     each record, framed as :func:`iter_read_chunks` frames them. A chunk
     closes on the quality line of its last record; a truncated final
     record gets an EMPTY quality string."""
+    if resolved_engine(engine) == "native":
+        yield from fastq_native.iter_reads_with_quals_native(path,
+                                                             chunk_size_reads)
+        return
     seqs: list[bytes] = []
     quals: list[bytes] = []
     line_count = 0
@@ -199,19 +253,28 @@ def iter_read_chunks_with_quals(path: str, chunk_size_reads: int
         yield seqs, quals
 
 
-def iter_flat_chunks_with_quals(path: str, chunk_size_reads: int
+def iter_flat_chunks_with_quals(path: str, chunk_size_reads: int,
+                                engine: str = "auto"
                                 ) -> Iterator[tuple[np.ndarray, ...]]:
     """(seq_flat, seq_offs, qual_flat, qual_offs) chunks: the quals-aware
     flat stream (see iter_flat_chunks for the offsets contract; a record
     whose sequence and quality lengths differ keeps both as decoded)."""
-    for seqs, quals in iter_read_chunks_with_quals(path, chunk_size_reads):
+    if resolved_engine(engine) == "native":
+        yield from fastq_native.iter_flat_with_quals_native(path,
+                                                            chunk_size_reads)
+        return
+    for seqs, quals in iter_read_chunks_with_quals(path, chunk_size_reads,
+                                                   engine="python"):
         yield (*_flatten_rows(seqs), *_flatten_rows(quals))
 
 
-def iter_flat_chunks_with_quals_multi(paths, chunk_size_reads: int
+def iter_flat_chunks_with_quals_multi(paths, chunk_size_reads: int,
+                                      engine: str = "auto"
                                       ) -> Iterator[tuple[np.ndarray, ...]]:
-    """Quals-aware flat chunk stream over a file list."""
-    return _over_paths(iter_flat_chunks_with_quals, paths, chunk_size_reads)
+    """Quals-aware flat chunk stream over a file list, every file on one
+    engine."""
+    return _over_paths(iter_flat_chunks_with_quals, paths, chunk_size_reads,
+                       engine=resolved_engine(engine))
 
 
 def _flatten_rows(rows: list) -> tuple[np.ndarray, np.ndarray]:
@@ -289,10 +352,11 @@ class prefetch:
         self.close()
 
 
-def count_bases(path: str, chunk_size_reads: int = 10_000) -> int:
+def count_bases(path: str, chunk_size_reads: int = 10_000,
+                engine: str = "auto") -> int:
     """Total sequence bases in a FASTQ file (aligner.rs:535-544)."""
-    return sum(int(flat.size)
-               for flat, _ in iter_flat_chunks(path, chunk_size_reads))
+    return sum(int(flat.size) for flat, _ in
+               iter_flat_chunks(path, chunk_size_reads, engine=engine))
 
 
 def write_fastq(path: str, reads: list[bytes | str], quality_char: str = "I") -> None:

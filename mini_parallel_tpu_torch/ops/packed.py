@@ -10,17 +10,22 @@ exception list (column, original byte) applied by one scatter after the
 unpack; positions past each row's length are refilled from the pad sentinel.
 
 Layout: exceptions are (B, K) with K bucketed to a power of two; column ==
-L marks an empty slot. Packing runs in NumPy on the host; the JAX
-package's native C++ packer is not ported yet. Per-base boolean masks
-travel 8 to a byte (pack_bits / unpack_bits_device).
+L marks an empty slot. Packing runs on the host: in one pass of the native
+C++ packer (native/pack2bit.cpp) when its library builds and loads, else
+in NumPy; both give the same PackedBatch, bit for bit. Per-base boolean
+masks travel 8 to a byte (pack_bits / unpack_bits_device).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
+
+from mini_parallel_tpu_torch import native
 
 # 2-bit codes for the packable alphabet (uppercase ACGT only: anything else
 # must round-trip byte-exactly through the exception list).
@@ -54,16 +59,88 @@ def _exc_bucket(n: int) -> int:
     return b
 
 
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_I32P = ctypes.POINTER(ctypes.c_int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _packer() -> ctypes.CDLL:
+    """The native packer's library (BuildError when it cannot be built or
+    loaded)."""
+    lib = native.load("pack2bit")
+    lib.p2_pack.restype = ctypes.c_int64
+    lib.p2_pack.argtypes = [_U8P, _I32P, ctypes.c_int64, ctypes.c_int64,
+                            _U8P, _I32P]
+    lib.p2_fill_exceptions.restype = None
+    lib.p2_fill_exceptions.argtypes = [_U8P, _I32P, _I32P, ctypes.c_int64,
+                                       ctypes.c_int64, ctypes.c_int64,
+                                       _I32P, _U8P]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _native_lib() -> ctypes.CDLL | None:
+    """The native packer, or None when it cannot be built (then NumPy
+    packs); decided once per process."""
+    try:
+        return _packer()
+    except native.BuildError:
+        return None
+
+
 def pack_batch(arr: np.ndarray, lengths: np.ndarray) -> PackedBatch:
     """Pack a padded (B, L) uint8 batch (L % 4 == 0) into 2-bit + exceptions.
 
     ``arr`` rows must be valid bytes for the first ``lengths[i]`` columns;
     the rest is pad, rebuilt from the pad sentinel at unpack time, so pad
-    bytes never cost exceptions.
+    bytes never cost exceptions. The native packer runs when its library
+    loads, NumPy otherwise (:func:`pack_batch_native`,
+    :func:`pack_batch_numpy`).
     """
+    if _native_lib() is not None:
+        return pack_batch_native(arr, lengths)
+    return pack_batch_numpy(arr, lengths)
+
+
+def _check_width(arr: np.ndarray) -> tuple[int, int]:
     B, L = arr.shape
     if L % 4 != 0:
         raise ValueError(f"row width {L} not a multiple of 4")
+    return B, L
+
+
+def pack_batch_native(arr: np.ndarray, lengths: np.ndarray) -> PackedBatch:
+    """:func:`pack_batch` in the native packer: one pass packs and counts
+    each row's exceptions, a second fills the rows that have any."""
+    lib = _packer()
+    B, L = _check_width(arr)
+    arr = np.ascontiguousarray(arr, np.uint8)
+    lengths = np.ascontiguousarray(lengths, np.int32)
+    if lengths.shape != (B,) or (B and (lengths.min() < 0
+                                        or lengths.max() > L)):
+        raise ValueError(f"lengths must be {B} values in [0, {L}]")
+    packed = np.empty((B, L // 4), np.uint8)
+    exc_counts = np.empty(B, np.int32)
+    max_exc = int(lib.p2_pack(arr.ctypes.data_as(_U8P),
+                              lengths.ctypes.data_as(_I32P), B, L,
+                              packed.ctypes.data_as(_U8P),
+                              exc_counts.ctypes.data_as(_I32P)))
+    K = _exc_bucket(max_exc)
+    exc_col = np.full((B, K), L, np.int32)
+    exc_val = np.zeros((B, K), np.uint8)
+    if max_exc:
+        lib.p2_fill_exceptions(arr.ctypes.data_as(_U8P),
+                               lengths.ctypes.data_as(_I32P),
+                               exc_counts.ctypes.data_as(_I32P), B, L, K,
+                               exc_col.ctypes.data_as(_I32P),
+                               exc_val.ctypes.data_as(_U8P))
+    return PackedBatch(packed=packed, exc_col=exc_col, exc_val=exc_val,
+                       lengths=lengths, length=L)
+
+
+def pack_batch_numpy(arr: np.ndarray, lengths: np.ndarray) -> PackedBatch:
+    """:func:`pack_batch` in NumPy."""
+    B, L = _check_width(arr)
     lengths = np.asarray(lengths, np.int32)
     codes = _PACK_CODE[arr]
     valid = np.arange(L, dtype=np.int32)[None, :] < lengths[:, None]

@@ -2,10 +2,11 @@
 engine, its native C++ decoder, frames them: a line that is not valid UTF-8
 is skipped without being counted and more than ten of them abort the file;
 one "\\n" and one "\\r" before it end a line; a stream error aborts the file
-with an IOError in every stream. Each stream of the port is held to the
-native decoder's output on the same file, and to the values written below
-(the values ``tests/test_native.py`` pins where it has them), which also
-hold when the native decoder is not built.
+with an IOError in every stream. Each stream of the port, on both of its
+engines (its own native decoder and its Python framing), is held to the
+JAX native decoder's output on the same file, and to the values written
+below (the values ``tests/test_native.py`` pins where it has them), which
+also hold when the native decoder is not built.
 """
 
 import gzip
@@ -16,12 +17,22 @@ import pytest
 from mini_parallel_tpu.io import fastq as jfastq
 from mini_parallel_tpu_torch import cli
 from mini_parallel_tpu_torch.io import fastq
+from mini_parallel_tpu_torch.native import BuildError
 
 
 def _native_available() -> bool:
     from mini_parallel_tpu import native
 
     return native.available()
+
+
+@pytest.fixture(params=["python", "native"])
+def engine(request) -> str:
+    """Each of the port's engines; native skips where it does not build."""
+    try:
+        return fastq.resolved_engine(request.param)
+    except BuildError as e:
+        pytest.skip(f"the native decoder does not build here: {e}")
 
 
 def _records(*recs) -> bytes:
@@ -78,20 +89,22 @@ def _flat_quals(chunks):
             for s, so, q, qo in chunks]
 
 
-def port_stream(kind: str, path: str, n: int):
+def port_stream(kind: str, path: str, n: int, engine: str):
+    eng = {"engine": engine}
     if kind == "reads":
-        return list(fastq.iter_read_chunks(path, n))
+        return list(fastq.iter_read_chunks(path, n, **eng))
     if kind == "flat":
-        return _flat(fastq.iter_flat_chunks(path, n))
+        return _flat(fastq.iter_flat_chunks(path, n, **eng))
     if kind == "quals":
-        return list(fastq.iter_read_chunks_with_quals(path, n))
+        return list(fastq.iter_read_chunks_with_quals(path, n, **eng))
     if kind == "flat quals":
-        return _flat_quals(fastq.iter_flat_chunks_with_quals(path, n))
+        return _flat_quals(fastq.iter_flat_chunks_with_quals(path, n, **eng))
     if kind == "bases":
-        return fastq.count_bases(path, n)
+        return fastq.count_bases(path, n, **eng)
     if kind == "flat multi":
-        return _flat(fastq.iter_flat_chunks_multi([path, path], n))
-    return _flat_quals(fastq.iter_flat_chunks_with_quals_multi([path, path], n))
+        return _flat(fastq.iter_flat_chunks_multi([path, path], n, **eng))
+    return _flat_quals(fastq.iter_flat_chunks_with_quals_multi([path, path], n,
+                                                               **eng))
 
 
 def native_stream(kind: str, path: str, n: int):
@@ -147,22 +160,23 @@ def _write(tmp_path, data: bytes, gz: bool) -> str:
 @pytest.mark.parametrize("kind", STREAMS)
 @pytest.mark.parametrize("gz", [False, True], ids=["plain", "gz"])
 @pytest.mark.parametrize("name", list(FILES))
-def test_streams_frame_as_the_native_decoder(tmp_path, name, gz, kind):
+def test_streams_frame_as_the_native_decoder(tmp_path, name, gz, kind,
+                                             engine):
     data, seqs, quals = FILES[name]
     path = _write(tmp_path, data, gz)
     native = _native_available()
     for n in CHUNKS:
         want = expected_stream(kind, seqs, quals, n)
-        assert port_stream(kind, path, n) == want, (name, kind, n)
+        assert port_stream(kind, path, n, engine) == want, (name, kind, n)
         if native:
             assert native_stream(kind, path, n) == want, (name, kind, n)
 
 
 @pytest.mark.parametrize("kind", STREAMS)
-def test_eleven_malformed_lines_abort_every_stream(tmp_path, kind):
+def test_eleven_malformed_lines_abort_every_stream(tmp_path, kind, engine):
     path = _write(tmp_path, ELEVEN_BAD, False)
     with pytest.raises(IOError, match=r"Too many read errors \(>10\)"):
-        port_stream(kind, path, 10)
+        port_stream(kind, path, 10, engine)
     if _native_available():
         with pytest.raises(IOError, match="Too many read errors"):
             native_stream(kind, path, 10)
@@ -183,11 +197,11 @@ def cut_gz(tmp_path_factory) -> str:
 
 
 @pytest.mark.parametrize("kind", STREAMS)
-def test_truncated_gzip_raises_oserror_in_every_stream(cut_gz, kind):
+def test_truncated_gzip_raises_oserror_in_every_stream(cut_gz, kind, engine):
     """gzip's EOFError reaches the caller as an IOError (an OSError), the
     kind of error the CLI reports, in the quality streams too."""
     with pytest.raises(OSError, match="Error reading"):
-        port_stream(kind, cut_gz, 10_000)
+        port_stream(kind, cut_gz, 10_000, engine)
     if _native_available():
         with pytest.raises(IOError):
             native_stream(kind, cut_gz, 10_000)
@@ -195,9 +209,12 @@ def test_truncated_gzip_raises_oserror_in_every_stream(cut_gz, kind):
 
 @pytest.mark.parametrize("extra", [["--min-base-quality", "10"], [],
                                    ["--gapped", "--genotype"]])
-def test_cli_reports_a_truncated_lane(cut_gz, tmp_path, monkeypatch, extra):
+def test_cli_reports_a_truncated_lane(cut_gz, tmp_path, monkeypatch, extra,
+                                     engine):
     """--variant-prep on a truncated lane prints one ERROR line and exits
-    1, with or without the quality stream: no exception escapes main."""
+    1, with or without the quality stream, on either engine (the CLI's
+    "auto" engine resolved to it): no exception escapes main."""
+    monkeypatch.setattr(fastq, "_auto_engine", lambda: engine)
     rng = np.random.default_rng(7)
     ref = tmp_path / "ref.fa"
     ref.write_bytes(b">chr\n" + rng.choice(np.frombuffer(b"ACGT", np.uint8),

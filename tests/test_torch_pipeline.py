@@ -231,17 +231,18 @@ def test_cli_full_wgs_sw_allow_cpu(tmp_path, rng, monkeypatch):
 
 @pytest.mark.parametrize("argv", [
     ["--files", "-1", "a", "-2", "b", "--profile", "p"],
-    ["--kmer", "x.fastq.gz"],
+    ["--kmer", "x.fastq.gz", "--profile", "p"],
     ["--complementarity", "-1", "a", "-2", "b", "--profile", "p"],
     ["--variant-prep", "x", "--reference", "r.fa", "--gapped", "--genotype",
      "--profile", "p"],
     ["--long-align", "-1", "a", "-2", "b", "--profile", "p"],
     ["--full-wgs", "--profile", "p"],
-    ["--kmer", "a.fastq.gz,b.fastq.gz", "-k", "15", "--canonical"],
+    ["--kmer", "a.fastq.gz,b.fastq.gz", "-k", "15", "--canonical",
+     "--profile", "p"],
     ["--variant-prep", "x", "--reference", "r.fa", "--gapped", "--rescue",
      "--profile", "p"],
     ["--variant-prep", "x", "--reference", "r.fa", "--genotype", "--kmer",
-     "k.fastq.gz"],
+     "k.fastq.gz", "--profile", "p"],
     [],
 ])
 def test_cli_not_yet_ported_exits_2(argv, monkeypatch):
