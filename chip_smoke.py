@@ -119,6 +119,25 @@ Phases, one line or more each; any failure raises and exits non-zero:
     == the unspilled counts; --canonical at k = 21 and k = 31 on a
     20,000-read subset == count_kmers_python exactly.
 
+20. Monitors and profiler traces: ``--full-wgs --mode sw`` on phase 4's
+    files from a fresh checkpoint directory with ``--profile`` (its bench
+    row must carry a monitor summary with the device-busy estimate from
+    nvidia-smi, the peak device memory and the highest power draw, and
+    ``nvidia_smi.log`` must hold samples), ``--variant-prep --gapped
+    --gap-model affine --genotype`` and ``--kmer`` on phase 9's two lanes
+    with ``--profile``: in each trace every port kernel launched as often
+    as its wrapper counted (set to 0 just before, read just after), the
+    device-busy share from the trace (kernel, memcpy and memset intervals
+    over the traced window), and the wall with --profile beside the wall
+    without it.
+21. The port's tools: ``tools.kernel_check`` (15 PASS rows; its long rows
+    at GATE_LONG), ``tools.smoke`` (13/13), ``linecount`` on phase 4's
+    files and ``stdin_linecount`` in a subprocess, ``make_scale_data``
+    (4 lanes x 50,000 reads), a clean ``--full-wgs --mode kadane`` over
+    them in 500-read chunks, the resilience soak at lane L003, chunk 60
+    (the injection must fire once, the file must resume from chunk 50,
+    every file equal to the clean run), and ``tools.autotune``'s winners.
+
 Then one JSON line of kernel results (each with its bound: see
 tools/roofline.py), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits 1 without.
@@ -1724,7 +1743,7 @@ def phase_genotype(fx: dict, env_path: str, device) -> dict:
     check(snp >= 0.95, f"planted SNPs called 1/1: {snp:.4f} < 0.95")
     check(launches["pairhmm"] == 1 and launches["pairhmm_f64"] == 1,
           f"Pair-HMM launches {launches}, not one in each precision")
-    return {"launches": launches, "operand": captured[0]}
+    return {"launches": launches, "operand": captured[0], "wall": wall}
 
 
 def phmm_synthetic(rng, device) -> dict:
@@ -2281,6 +2300,325 @@ def phase_kmer(tmp: str, fx: dict, env_path: str, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Monitors and profiler traces (utils/perf_logger.py, cli.py --profile)
+# ---------------------------------------------------------------------------
+
+def traced_kernels() -> dict:
+    """Every kernel wrapper of the port, by kernel: (its wrappers, the
+    parts of the kernel's name in a trace, demangled or mangled; the
+    template arguments tell the forms apart). sw_long's linear and affine
+    wrappers launch one kernel template."""
+    from mini_parallel_tpu_torch.ops import pairhmm_cuda, sw_cuda, sw_long
+    from mini_parallel_tpu_torch.ops import sw_traceback_cuda as tbc
+    from mini_parallel_tpu_torch.tools import roofline
+
+    return {
+        "sw_score": ((sw_cuda.sw_score_batch_cuda,), ("sw_score_kernel",)),
+        "sw_affine_score": ((sw_cuda.sw_affine_batch_cuda,),
+                            ("sw_affine_kernel",)),
+        "sw_vs_ref": ((sw_cuda.sw_vs_ref_batch_cuda,), ("sw_vs_ref_kernel",)),
+        "sw_moves": ((tbc.sw_moves_batch_cuda,),
+                     ("sw_moves_kernel", "LinearGap")),
+        "sw_affine_moves": ((tbc.sw_affine_moves_batch_cuda,),
+                            ("sw_moves_kernel", "AffineGap")),
+        "pairhmm": ((pairhmm_cuda.pairhmm_batch_cuda,),
+                    ("pairhmm_kernel", "F32")),
+        "pairhmm_f64": ((pairhmm_cuda.pairhmm_f64_batch_cuda,),
+                        ("pairhmm_kernel", "F64")),
+        "sw_long": ((sw_long.sw_strip_cuda, sw_long.sw_affine_strip_cuda),
+                    ("sw_group_kernel",)),
+        "roofline_chain": ((roofline.roofline_chain_cuda,), ("chain_kernel",)),
+    }
+
+
+def read_trace(trace_dir: str) -> dict:
+    """The one trace a --profile run wrote into ``trace_dir``: its kernel
+    launches by name, the traced window (the span of all its events), and
+    the device-busy share: the union of the kernel, memcpy and memset
+    intervals over that window."""
+    names = os.listdir(trace_dir)
+    check(len(names) == 1 and names[0].endswith(".pt.trace.json"),
+          f"expected one trace in {trace_dir}: {names}")
+    with open(os.path.join(trace_dir, names[0])) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "ts" in e]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                   for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, reach = 0.0, float("-inf")
+    for t0, t1 in spans:
+        if t1 > reach:
+            busy += t1 - max(t0, reach)
+            reach = t1
+    start = min(float(e["ts"]) for e in events)
+    end = max(float(e["ts"]) + float(e.get("dur", 0)) for e in events)
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return {"window_ms": (end - start) / 1e3, "busy_ms": busy / 1e3,
+            "busy_share": busy / (end - start), "kernels": kernels,
+            "cpu_ops": sum(e.get("cat") == "cpu_op" for e in events)}
+
+
+def profiled_run(label: str, argv: list[str], run_dir: str, need: dict,
+                 cli_monitors: bool = False) -> dict:
+    """``cli.main(argv + ["--profile", ...])`` from ``run_dir`` (a fresh
+    working directory: checkpoints and logs/ land there) under the system
+    monitors: the CLI's own (``cli_monitors``: --full-wgs) or, for the
+    other modes, the same monitors started around the call. Every kernel
+    wrapper's count (set to 0 just before, read just after) must equal the
+    launches of its kernel in the trace, each kernel in ``need`` must have
+    launched as many times as it says (None: at least once), and
+    nvidia_smi.log must hold samples. Peak device memory is this run's."""
+    import torch
+
+    from mini_parallel_tpu_torch.utils import perf_logger
+
+    kernels = traced_kernels()
+    os.makedirs(run_dir)
+    cwd = os.getcwd()
+    os.chdir(run_dir)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for fns, _ in kernels.values():
+            for fn in fns:
+                fn.launches = 0
+        with (contextlib.nullcontext() if cli_monitors
+              else perf_logger.system_monitors(device=torch.device("cuda"))):
+            lines, wall = cli_lines([*argv, "--profile", "trace"])
+        torch.cuda.synchronize()
+        counts = {k: sum(fn.launches for fn in fns)
+                  for k, (fns, _) in kernels.items()}
+    finally:
+        os.chdir(cwd)
+    trace = read_trace(os.path.join(run_dir, "trace"))
+    in_trace = {k: sum(all(p in name for p in parts)
+                       for name in trace["kernels"])
+                for k, (_, parts) in kernels.items()}
+    print(f"[20 trace] {label}: {len(trace['kernels'])} kernels, "
+          f"{trace['cpu_ops']} CPU ops in a {trace['window_ms']:.1f} ms "
+          f"window | port kernels in the trace {in_trace} | wrappers counted "
+          f"{counts}", flush=True)
+    check(in_trace == counts,
+          f"{label}: trace launches {in_trace} != wrapper counts {counts}")
+    for k, n in need.items():
+        check(counts[k] >= 1 if n is None else counts[k] == n,
+              f"{label}: {k} launched {counts[k]} times, want "
+              f"{'some' if n is None else n}")
+    logs = os.path.join(run_dir, "logs", "run_1")
+    samples = perf_logger.read_nvidia_smi_log(
+        os.path.join(logs, "nvidia_smi.log"))
+    summary = perf_logger.summarize_monitor_logs(logs)
+    check(len(samples) > 0, f"{label}: nvidia_smi.log holds no sample")
+    print(f"[20 busy] {label}: device busy {trace['busy_ms']:.1f} ms of "
+          f"{trace['window_ms']:.1f} ms = {100 * trace['busy_share']:.3f} % "
+          "(trace: kernel, memcpy and memset intervals, their union) | "
+          f"nvidia-smi utilization.gpu (time-weighted, {len(samples)} "
+          f"samples) {100 * summary['device_busy_fraction_est']:.2f} % | "
+          f"peak device memory {summary.get('peak_device_bytes_in_use')} "
+          f"bytes | highest power draw {summary.get('max_power_draw_w')} W",
+          flush=True)
+    return {"lines": lines, "wall": wall, "trace": trace, "counts": counts,
+            "summary": summary}
+
+
+def phase_profiles(tmp: str, env_path: str, results_dir: str, fx: dict,
+                   genotype_wall: float) -> dict:
+    """--full-wgs --mode sw (phase 4's files), --variant-prep --gapped
+    --gap-model affine --genotype and --kmer (phase 9's two lanes) with
+    --profile, each from a fresh working directory under the monitors; the
+    --full-wgs and --kmer runs also without --profile, for the wall (phase
+    14's run is the genotype path's)."""
+    report_engine(20)
+    base = os.path.join(tmp, "profiles")
+    out = {}
+    wgs = ["--full-wgs", "--mode", "sw", "--env", env_path]
+    plain_dir = os.path.join(base, "wgs_plain")
+    os.makedirs(plain_dir)
+    cwd = os.getcwd()
+    os.chdir(plain_dir)  # a fresh checkpoint: phase 4's would skip every file
+    try:
+        _, plain_wall = cli_lines(wgs)
+    finally:
+        os.chdir(cwd)
+    run = profiled_run("--full-wgs --mode sw", wgs, os.path.join(base, "wgs"),
+                       {"sw_score": 4 * -(-FILE_READS // CHUNK_READS)},
+                       cli_monitors=True)
+    runs = sorted(int(n.split("_")[1]) for n in os.listdir(results_dir)
+                  if n.startswith("run_"))
+    with open(os.path.join(results_dir,
+                           f"run_{runs[-1]}_benchmark_results.json")) as f:
+        row = json.load(f).get("monitor_summary", {})
+    print(f"[20 monitors] --full-wgs --mode sw: its bench row's "
+          f"monitor_summary {row}", flush=True)
+    for key in ("device_busy_fraction_est", "peak_device_bytes_in_use",
+                "max_power_draw_w"):
+        check(key in row, f"the bench row's monitor_summary lacks {key}")
+    out["full_wgs"] = dict(run, plain_wall=plain_wall)
+
+    vp = ["--variant-prep", f"{fx['L1']},{fx['L2']}", "--reference",
+          fx["ref"], "--env", env_path, "--gapped", "--gap-model", "affine",
+          "--genotype", "--vcf-out", "profiled.vcf"]
+    run = profiled_run("--variant-prep --gapped --gap-model affine "
+                       "--genotype", vp, os.path.join(base, "genotype"),
+                       {"sw_affine_moves": None, "pairhmm": 1,
+                        "pairhmm_f64": 1})
+    out["genotype"] = dict(run, plain_wall=genotype_wall)
+
+    km = ["--kmer", f"{fx['L1']},{fx['L2']}", "--env", env_path]
+    _, km_plain = cli_lines(km)
+    run = profiled_run("--kmer (summary)", km, os.path.join(base, "kmer"), {})
+    out["kmer"] = dict(run, plain_wall=km_plain)
+    for key, label in (("full_wgs", "--full-wgs --mode sw"),
+                       ("genotype", "--variant-prep ... --genotype (phase 14 "
+                        "without)"),
+                       ("kmer", "--kmer summary")):
+        r = out[key]
+        print(f"[20 overhead] {label}: wall with --profile {r['wall']:.2f} s,"
+              f" without {r['plain_wall']:.2f} s ("
+              f"{100 * (r['wall'] / r['plain_wall'] - 1):+.1f} %)", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The port's tools on the card (mini_parallel_tpu_torch/tools)
+# ---------------------------------------------------------------------------
+
+SCALE_LANES, SCALE_READS, SCALE_CHUNK = 4, 50_000, 500
+# kernel_check's long rows here (30,000 x 40,000 by default): phases 6-8
+# hold the strip kernel at up to 200,000 x 150,000 already, and the two
+# NumPy goldens at the default size take tens of seconds of host time
+GATE_LONG = {"LONG_M": 6_000, "LONG_N": 8_000, "LONG_SEGMENT": 1_500,
+             "LONG_A_AT": 1_000, "LONG_B_AT": 2_800}
+
+
+@contextlib.contextmanager
+def forced_env(**values):
+    """Set environment variables for the block, whatever an earlier .env
+    left there (load_dotenv never overrides), and restore them after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def captured_stdout(fn, *args):
+    """(fn's return, the lines it printed)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args)
+    text = buf.getvalue()
+    sys.stdout.write(text)
+    sys.stdout.flush()
+    return rc, text.splitlines()
+
+
+def phase_tools(tmp: str, results_dir: str) -> dict:
+    """kernel_check (15 rows), smoke (13/13), linecount on phase 4's files,
+    stdin_linecount in a subprocess, make_scale_data, a clean --full-wgs
+    kadane run over the scale set and the resilience soak over it, and
+    autotune."""
+    import subprocess
+
+    from mini_parallel_tpu_torch import cli
+    from mini_parallel_tpu_torch.tools import (
+        autotune,
+        kernel_check,
+        linecount,
+        make_scale_data,
+        smoke,
+        soak_resilience,
+    )
+
+    out = {}
+    saved = {k: getattr(kernel_check, k) for k in GATE_LONG}
+    for k, v in GATE_LONG.items():
+        setattr(kernel_check, k, v)
+    try:
+        for tool, fn, argv in (("kernel_check", kernel_check.main, []),
+                               ("smoke", smoke.main, [])):
+            t0 = time.perf_counter()
+            rc, lines = captured_stdout(fn, argv)
+            out[tool] = time.perf_counter() - t0
+            passed = sum("PASS" in ln for ln in lines)
+            print(f"[21 {tool}] exit {rc}, {passed} PASS rows, "
+                  f"{out[tool]:.2f} s (long rows at {GATE_LONG['LONG_M']} x "
+                  f"{GATE_LONG['LONG_N']})", flush=True)
+            # smoke: its 13 rows and the 15 of the kernel gate it runs first
+            want = 15 if tool == "kernel_check" else 13 + 15
+            check(rc == 0 and passed == want,
+                  f"{tool} exited {rc} with {passed} PASS rows, want {want}")
+    finally:
+        for k, v in saved.items():
+            setattr(kernel_check, k, v)
+
+    files = sorted(os.path.join(tmp, n) for n in os.listdir(tmp)
+                   if n.startswith("SMOKE_L"))
+    rc, lines = captured_stdout(linecount.main, files)
+    check(rc == 0 and lines == [f"{p}: {4 * FILE_READS} lines" for p in files],
+          f"linecount: {lines}")
+    with gzip.open(files[0], "rb") as f:
+        data = f.read()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mini_parallel_tpu_torch.tools.stdin_linecount"],
+        input=data, capture_output=True, timeout=120,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0 and proc.stdout == b"%d\n" % (4 * FILE_READS),
+          f"stdin_linecount: {proc.returncode} {proc.stdout[-100:]!r}")
+    print(f"[21 linecount] {len(files)} files x {4 * FILE_READS} lines; "
+          f"stdin_linecount {proc.stdout.decode().strip()}", flush=True)
+
+    scale = os.path.join(tmp, "scale")
+    t0 = time.perf_counter()
+    check(make_scale_data.main([scale, "--lanes", str(SCALE_LANES),
+                                "--reads-per-lane", str(SCALE_READS)]) == 0,
+          "make_scale_data failed")
+    out["make_scale_data"] = time.perf_counter() - t0
+    run = os.path.join(tmp, "soak")
+    os.makedirs(run)
+    cwd = os.getcwd()
+    os.chdir(run)
+    try:
+        with forced_env(WGS_DATA_DIR=scale, WGS_SAMPLE_ID="SCALE",
+                        WGS_LANES=SCALE_LANES, WGS_READS_PER_LANE=1,
+                        GPU_CHUNK_SIZE_READS=SCALE_CHUNK,
+                        MPT_RESULTS_DIR=results_dir):
+            lines, wall = cli_lines(["--full-wgs", "--mode", "kadane"])
+            (ckpt,) = [n for n in os.listdir(run) if n.startswith("checkpoint_")]
+            soak: list[str] = []
+            rc = soak_resilience.main([ckpt], echo=soak.append)
+    finally:
+        os.chdir(cwd)
+    verdict = json.loads(soak[-1] if rc == 0 else soak[-2])
+    print(f"[21 soak] make_scale_data {SCALE_LANES} x {SCALE_READS} reads: "
+          f"{out['make_scale_data']:.2f} s | clean --full-wgs kadane "
+          f"{wall:.2f} s | soak exit {rc}: {verdict} | "
+          f"{sum(ln.endswith(' OK') for ln in soak)}/{SCALE_LANES} files "
+          "equal to the clean run", flush=True)
+    check(rc == 0 and verdict["injection_fired"]
+          and verdict["retried_from_chunk"] == 50
+          and verdict["bit_exact_vs_clean"],
+          f"the soak did not recover its injected failure: {soak[-6:]}")
+
+    t0 = time.perf_counter()
+    tune: list[str] = []
+    rc = autotune.main([], echo=tune.append)
+    out["autotune"] = time.perf_counter() - t0
+    for ln in tune:
+        print(f"[21 autotune] {ln}", flush=True)
+    check(rc == 0 and sum(ln.startswith("winner") for ln in tune) >= 4,
+          f"autotune exited {rc}")
+    print(f"[21 autotune] {out['autotune']:.2f} s", flush=True)
+    return out
+
+
 def report_shares(kernels: list[dict], peak_instr: float) -> None:
     """Each kernel's time against its bound; for the int32 kernels also
     against the measured ceiling: the chain's instruction rate in place of
@@ -2358,6 +2696,8 @@ def main() -> int:
         phmm = phase_pairhmm_compare(rng, genotype.pop("operand"), device)
         phase_native_plane(info, tmp, env_path, results_dir, total_bases, fx)
         phase_kmer(tmp, fx, env_path, device)
+        phase_profiles(tmp, env_path, results_dir, fx, genotype["wall"])
+        phase_tools(tmp, results_dir)
     chain = phase_roofline(device)
     main_cells = float(MAIN_B) * MAIN_LEN * MAIN_LEN
     main_bytes = float(2 * MAIN_B * MAIN_PAD + 4 * MAIN_B)

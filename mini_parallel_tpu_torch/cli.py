@@ -8,8 +8,12 @@ plus its additions). Ported: ``--full-wgs``, ``--test-wgs``, direct
 ``--sam-out`` and ``--prep-checkpoint``) and ``--kmer`` (with ``-k``,
 ``--canonical``, ``--kmer-out`` and ``--kmer-checkpoint``), in every
 ``--mode`` (kadane, sw, sw-affine, contiguous), with ``--allow-cpu``,
-``--env``, ``--chunk-size`` and ``--retries``. ``--profile`` and
-``MPT_MESH_SHAPE`` are accepted and exit 2 with "not yet ported".
+``--env``, ``--chunk-size``, ``--retries`` and ``--profile DIR`` (a
+``torch.profiler`` trace of the whole run in the TensorBoard/Chrome trace
+layout). ``--full-wgs`` runs under the system monitors
+(utils/perf_logger.py: ``logs/run_N/``) and attaches their summary to its
+benchmark row. ``MPT_MESH_SHAPE`` is accepted and exits 2 with "not yet
+ported".
 
     python -m mini_parallel_tpu_torch --full-wgs --mode sw
     python -m mini_parallel_tpu_torch --files -1 R1.fastq.gz -2 R2.fastq.gz
@@ -19,6 +23,7 @@ plus its additions). Ported: ``--full-wgs``, ``--test-wgs``, direct
         --reference ref.fa --gapped --gap-model affine --genotype --vcf-out calls.vcf
     python -m mini_parallel_tpu_torch --kmer L1.fastq.gz,L2.fastq.gz -k 21 \
         --canonical --kmer-out counts.tsv
+    python -m mini_parallel_tpu_torch --full-wgs --mode sw --profile traces/
 
 A CUDA device is mandatory, as the reference's GPU was (main.rs:76-79),
 unless ``--allow-cpu`` asks for the CPU explicitly.
@@ -27,16 +32,13 @@ unless ``--allow-cpu`` asks for the CPU explicitly.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
+import socket
 import sys
 import time
 
 from mini_parallel_tpu_torch.utils import config as config_mod
-
-# mode flags of the JAX package that this package does not run yet
-_NOT_PORTED = (
-    ("profile", "--profile"),
-)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -122,17 +124,41 @@ def build_parser() -> argparse.ArgumentParser:
                    "main.rs:76-79)")
     p.add_argument("--env", default=".env", help="path to .env config file")
     p.add_argument("--profile", metavar="DIR", default=None,
-                   help="profiler trace (not yet ported)")
+                   help="capture a torch.profiler trace of the run into DIR "
+                   "(CPU, and CUDA on the card; view with TensorBoard or "
+                   "chrome://tracing)")
     return p
+
+
+@contextlib.contextmanager
+def profiled(trace_dir: str, cuda: bool, echo=print):
+    """A ``torch.profiler`` trace of the block (CPU activity, and CUDA
+    activity when ``cuda``), written into ``trace_dir`` as
+    ``<host>_<pid>.<ns>.pt.trace.json``, the layout TensorBoard's
+    profiler plugin and ``tensorboard_trace_handler`` use. The trace is
+    stopped and written however the block ends; a failed write raises."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir, f"{socket.gethostname()}_{os.getpid()}"
+                            f".{time.time_ns()}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        if not os.path.isfile(path):
+            raise OSError(f"the profiler wrote no trace to {path}")
+        echo(f"Profile trace written to {path}")
 
 
 def main(argv: list[str] | None = None, echo=print) -> int:
     args = build_parser().parse_args(argv)
-    for attr, flag in _NOT_PORTED:
-        if getattr(args, attr):
-            echo(f"ERROR: {flag} is not yet ported to mini_parallel_tpu_torch "
-                 "(the JAX package, python -m mini_parallel_tpu, runs it)")
-            return 2
     config_mod.load_dotenv(args.env)  # main.rs:50
     env = dict(os.environ)
     if args.chunk_size is not None:
@@ -141,7 +167,17 @@ def main(argv: list[str] | None = None, echo=print) -> int:
         env, require_chunk_size=args.full_wgs or args.test_wgs or args.files)
     if args.mode:
         cfg.mode = args.mode
+    if not args.profile:
+        return _dispatch(args, cfg, echo)
+    import torch
 
+    with profiled(args.profile,
+                  not args.allow_cpu and torch.cuda.is_available(), echo):
+        return _dispatch(args, cfg, echo)
+
+
+def _dispatch(args, cfg, echo) -> int:
+    """Run the mode the flags select."""
     if args.test_wgs:  # main.rs:127-153: counts bases, needs no device
         from mini_parallel_tpu_torch.io import fastq
 
@@ -185,18 +221,13 @@ def main(argv: list[str] | None = None, echo=print) -> int:
         return 1  # GPU-mandatory behavior, main.rs:76-79,160-163
     try:
         engine = AlignmentEngine(cfg, device=device)
-    except NotImplementedError as e:
+    except NotImplementedError as e:  # MPT_MESH_SHAPE: parallel/ is not ported
         echo(f"ERROR: {e}")
         return 2
     echo(get_system_info(device).banner())
 
     if args.full_wgs:  # main.rs:72-124
-        from mini_parallel_tpu_torch.models.wgs import process_full_wgs_dataset
-
-        results = process_full_wgs_dataset(engine, cfg, echo=echo,
-                                           retries=args.retries)
-        echo(f"Processed {len(results)} files")
-        return 0
+        return _full_wgs(args, cfg, engine, echo)
     if args.variant_prep:
         return _variant_prep(args, cfg, device, echo)
     if args.complementarity:
@@ -218,6 +249,32 @@ def main(argv: list[str] | None = None, echo=print) -> int:
         return 0
     score = engine.score_strings(args.seq1, args.seq2)  # main.rs:183-191
     echo(f"Alignment score: {score}")
+    return 0
+
+
+def _full_wgs(args, cfg, engine, echo) -> int:
+    """--full-wgs under the system monitors; their summary goes onto the
+    run's benchmark row (the reference read nvidia-smi dmon,
+    perf_logger.rs:77-82, then wrote a fixed 25% into its results,
+    benchmark.rs:159)."""
+    from mini_parallel_tpu_torch.models.wgs import process_full_wgs_dataset
+    from mini_parallel_tpu_torch.utils.bench_tracker import annotate_run
+    from mini_parallel_tpu_torch.utils.perf_logger import (
+        summarize_monitor_logs,
+        system_monitors,
+    )
+
+    bench_runs: list[int] = []
+    with system_monitors(device=engine.device) as mon:
+        results = process_full_wgs_dataset(
+            engine, cfg, echo=echo, retries=args.retries,
+            on_bench=lambda b: bench_runs.append(b.run_number))
+    summary = summarize_monitor_logs(mon.run_dir)
+    if summary:
+        echo(f"Monitor summary ({mon.run_dir}): {summary}")
+        for rn in bench_runs:
+            annotate_run(rn, {"monitor_summary": summary})
+    echo(f"Processed {len(results)} files")
     return 0
 
 

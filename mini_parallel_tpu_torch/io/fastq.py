@@ -352,6 +352,21 @@ class prefetch:
         self.close()
 
 
+def count_lines(path: str, engine: str = "auto") -> int:
+    """Lines of a plain or gzip file, the ``linecount`` tool
+    (tools/linecount.rs:6-30), by the engine resolved before the file is
+    read. A stream error (a truncated or corrupt .gz) raises IOError."""
+    if resolved_engine(engine) == "native":
+        return fastq_native.count_lines_native(path)
+    n = 0
+    try:
+        for _ in open_lines(path):
+            n += 1
+    except (OSError, EOFError) as e:
+        raise IOError(f"Error reading {path} at line {n}: {e}") from e
+    return n
+
+
 def count_bases(path: str, chunk_size_reads: int = 10_000,
                 engine: str = "auto") -> int:
     """Total sequence bases in a FASTQ file (aligner.rs:535-544)."""

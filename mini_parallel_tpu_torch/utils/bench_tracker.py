@@ -88,6 +88,38 @@ def claim_run_number(results_dir: str | None = None) -> int:
             n += 1
 
 
+def annotate_run(run_number: int, fields: dict,
+                 results_dir: str | None = None) -> bool:
+    """Add fields (e.g. the monitor summary, computable only after the
+    monitors stop, after finish() wrote the row) to an existing run's
+    per-run JSON and its legacy aggregate entry. Returns True if the
+    per-run file was updated."""
+    results_dir = results_dir or default_results_dir()
+    per_run = os.path.join(results_dir,
+                           f"run_{run_number}_benchmark_results.json")
+    try:
+        with open(per_run) as f:
+            payload = json.load(f)
+    except (OSError, json.JSONDecodeError):
+        return False
+    payload.update(fields)
+    with open(per_run, "w") as f:
+        json.dump(payload, f, indent=2)
+    legacy = os.path.join(os.path.dirname(results_dir.rstrip("/")) or ".",
+                          "benchmark_results.json")
+    try:
+        with open(legacy) as f:
+            history = json.load(f)
+        for row in history if isinstance(history, list) else []:
+            if row.get("run_number") == run_number:
+                row.update(fields)
+        with open(legacy, "w") as f:
+            json.dump(history, f, indent=2)
+    except (OSError, json.JSONDecodeError):
+        pass
+    return True
+
+
 class BenchmarkTracker:
     def __init__(
         self,

@@ -245,11 +245,20 @@ def test_cli_full_wgs_sw_allow_cpu(tmp_path, rng, monkeypatch):
      "k.fastq.gz", "--profile", "p"],
     [],
 ])
-def test_cli_not_yet_ported_exits_2(argv, monkeypatch):
+def test_cli_not_yet_ported_exits_2(argv, monkeypatch, tmp_path):
+    """--profile is ported; device meshes are what every mode still
+    refuses: each argv under MPT_MESH_SHAPE exits 2 "not yet ported", and
+    its --profile trace of the refused run is still written."""
+    monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("GPU_CHUNK_SIZE_READS", "10")
+    monkeypatch.setenv("MPT_MESH_SHAPE", "2")
     out = []
-    assert cli.main(argv, echo=out.append) == 2
+    assert cli.main(argv + ["--allow-cpu"] if argv else argv,
+                    echo=out.append) == 2
     assert argv == [] or any("not yet ported" in ln for ln in out)
+    if argv:
+        (trace,) = os.listdir(tmp_path / "p")
+        assert trace.endswith(".pt.trace.json")
 
 
 def test_cli_and_engine_require_cuda():

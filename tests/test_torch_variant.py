@@ -536,16 +536,18 @@ def test_cli_variant_prep_errors_match_jax(sample, monkeypatch, tmp_path):
         assert out == jout and out[-1].startswith("ERROR:")
 
 
-def test_cli_genotype_not_yet_ported(sample, monkeypatch):
-    """--genotype itself is ported (tests/test_torch_genotype.py); what it
-    may still be combined with and the port does not run yet refuses:
-    --profile and device meshes."""
+def test_cli_genotype_not_yet_ported(sample, monkeypatch, tmp_path):
+    """--genotype itself is ported (tests/test_torch_genotype.py), and so
+    is --profile; what it may still be combined with and the port does not
+    run yet refuses: device meshes, with or without a profiler trace."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("MPT_MESH_SHAPE", "2")
     out = []
     assert cli.main(["--variant-prep", sample["lanes"][0], "--reference",
                      sample["ref"], "--genotype", "--profile", "p",
                      "--allow-cpu"], echo=out.append) == 2
-    assert "--profile is not yet ported" in out[-1]
-    monkeypatch.setenv("MPT_MESH_SHAPE", "2")
+    assert "MPT_MESH_SHAPE" in out[-2] and "not yet ported" in out[-2]
+    assert out[-1].startswith("Profile trace written to p/")
     out = []
     assert cli.main(["--variant-prep", sample["lanes"][0], "--reference",
                      sample["ref"], "--genotype", "--allow-cpu"],
