@@ -138,6 +138,21 @@ Phases, one line or more each; any failure raises and exits non-zero:
     (the injection must fire once, the file must resume from chunk 50,
     every file equal to the clean run), and ``tools.autotune``'s winners.
 
+22. parallel/: a mesh of 4 shards of cuda:0 against the single-device
+    engines: --full-wgs's engine in all four modes on phase 4's files,
+    score_read_batch on the main shape's pairs, make_wgs_step and
+    make_wgs_step_packed against one shard (every statistic), phase 8's
+    complementarity lanes, --variant-prep --gapped --rescue --genotype
+    (and its SAM pass) linear and affine on the 4,000-read lane (pileup,
+    VCF and SAM bytes), --kmer on the 100,000-read lane (summary and the
+    full dump's bytes); the long pair of phase 8 in 4 row bands of a
+    (1, 4) seq mesh == sw_score_long, timed beside it, and the kernel
+    bands == the plain bands at 3,000 x 2,000; the CLI under
+    MPT_MESH_SHAPE=1 and 1x1 (--full-wgs, --long-align); --full-wgs in two
+    processes over gloo on the one card (JAX_COORDINATOR_ADDRESS): both
+    ranks' merged totals == the single process's, the files split. Every
+    path's kernels must have launched.
+
 Then one JSON line of kernel results (each with its bound: see
 tools/roofline.py), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits 1 without.
@@ -1690,9 +1705,9 @@ def phase_genotype(fx: dict, env_path: str, device) -> dict:
     captured, walls = [], []
     batch, genotype = vp.pairhmm_log10_padded, vp.VariantPrepEngine.genotype_candidates
 
-    def capture(*args):
+    def capture(*args, **kw):
         captured.append(args)
-        return batch(*args)
+        return batch(*args, **kw)
 
     def timed(self, *args, **kw):
         t0 = time.perf_counter()
@@ -2619,6 +2634,349 @@ def phase_tools(tmp: str, results_dir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: device meshes, row bands and two processes (parallel/)
+# ---------------------------------------------------------------------------
+
+PAR_SHARDS = 4  # shards of the data mesh and row bands of the seq mesh
+PAR_SMALL_M, PAR_SMALL_N = 3_000, 2_000  # the plain bands' pair
+
+_DIST_WORKER = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from mini_parallel_tpu_torch import cli
+
+out = []
+rc = cli.main(["--full-wgs", "--mode", "sw", "--env", sys.argv[2]],
+              echo=out.append)
+json.dump({"rc": rc, "lines": out}, open(sys.argv[3], "w"))
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _vcf_sam_bytes(eng, lane: str, out: str) -> dict:
+    """One variant-prep engine on a lane: the pileup, the genotyped VCF
+    bytes and the SAM bytes (the SAM pass runs on its own)."""
+    from mini_parallel_tpu_torch.models import variant_prep as vp
+
+    res = eng.process_file(lane)
+    pileup = res.pileup.copy()
+    res = eng.genotype_candidates(lane, res)
+    vp.write_candidates_vcf(out + ".vcf", res)
+    eng.process_file(lane, sam_out=out + ".sam")
+    with open(out + ".vcf", "rb") as f, open(out + ".sam", "rb") as g:
+        return {"pileup": pileup, "vcf": f.read(), "sam": g.read(),
+                "mapped": res.mapped_reads,
+                "called": sum(c.gt is not None for c in res.candidates)}
+
+
+def phase_parallel(rng, tmp: str, fx: dict, main_pairs, total_bases: int,
+                   device) -> dict:
+    """Every sharded path of parallel/ against the port's single-device
+    engines on the card: a data mesh of PAR_SHARDS shards of cuda:0, a
+    (1, PAR_SHARDS) seq mesh for the long pair, the CLI under
+    MPT_MESH_SHAPE=1 and 1x1, and --full-wgs in two processes over gloo.
+    Each path's kernel counts are set to 0 just before it and read just
+    after; every kernel it reaches must have launched. Returns the band
+    path's times."""
+    import hashlib
+    import subprocess
+
+    import torch
+
+    from mini_parallel_tpu_torch.io import fasta
+    from mini_parallel_tpu_torch.models import variant_prep as vp
+    from mini_parallel_tpu_torch.models.alignment import MODES, AlignmentEngine
+    from mini_parallel_tpu_torch.models.complementarity import (
+        ComplementarityEngine,
+    )
+    from mini_parallel_tpu_torch.models.kmer_model import KmerEngine
+    from mini_parallel_tpu_torch.ops import encode, sw_long
+    from mini_parallel_tpu_torch.ops import packed as packedmod
+    from mini_parallel_tpu_torch.parallel import pipeline
+    from mini_parallel_tpu_torch.parallel.mesh import make_mesh
+    from mini_parallel_tpu_torch.utils.config import Config
+
+    wrappers = {name: fns for name, (fns, _) in traced_kernels().items()}
+
+    def zero():
+        for fns in wrappers.values():
+            for fn in fns:
+                fn.launches = 0
+
+    def counts() -> dict:
+        torch.cuda.synchronize()
+        return {name: sum(fn.launches for fn in fns)
+                for name, fns in wrappers.items()
+                if sum(fn.launches for fn in fns)}
+
+    def need(n: dict, names, what: str):
+        missing = [k for k in names if not n.get(k)]
+        check(not missing, f"{what} on the mesh launched no {missing}")
+
+    t_phase = time.perf_counter()
+    card = torch.device(device.type, 0)
+    mesh = make_mesh((PAR_SHARDS,), devices=[card] * PAR_SHARDS)
+    one = make_mesh((1,), devices=[card])
+    cfg = Config(chunk_size_reads=CHUNK_READS)
+    out: dict = {}
+
+    # --full-wgs's engine on phase 4's four files, every mode
+    files = [os.path.join(tmp, f"SMOKE_L{lane:03d}_R{r}_001.fastq.gz")
+             for lane in (1, 2) for r in (1, 2)]
+    for mode in MODES:
+        totals = []
+        for eng in (AlignmentEngine(cfg, mode=mode, device=device),
+                    AlignmentEngine(cfg, mode=mode, mesh=mesh)):
+            zero()
+            t0 = time.perf_counter()
+            res = [eng.self_align_file(f) for f in files]
+            n = counts()
+            totals.append((sum(r.score for r in res),
+                           sum(r.total_reads for r in res),
+                           sum(r.total_bases for r in res),
+                           sum(r.chunks for r in res),
+                           sum(r.failed_chunks for r in res)))
+        wall = time.perf_counter() - t0
+        print(f"[22 full-wgs {mode}] {PAR_SHARDS} shards: score, reads, "
+              f"bases, chunks, failed {totals[1]} | one device {totals[0]} | "
+              f"launches {n} | the mesh's pass {wall:.2f} s", flush=True)
+        check(totals[1] == totals[0] and totals[1][4] == 0,
+              f"--full-wgs {mode} on the mesh {totals[1]} != {totals[0]}")
+        if mode in ("sw", "sw-affine"):
+            key = "sw_score" if mode == "sw" else "sw_affine_score"
+            check(n.get(key) == PAR_SHARDS * totals[1][3],
+                  f"{mode}: {n} for {totals[1][3]} chunks x {PAR_SHARDS}")
+            check(totals[1][0] == 2 * total_bases, f"{mode} total")
+
+    # per-pair scores of the main shape's pairs, and the WGS step
+    rows_a, rows_b = main_pairs
+    for mode in ("sw", "sw-affine"):
+        scores = []
+        for where in ({"device": device}, {"mesh": mesh}):
+            zero()
+            scores.append(AlignmentEngine(cfg, mode=mode, **where)
+                          .score_read_batch(rows_a, rows_b))
+            n = counts()
+        print(f"[22 pairs {mode}] {len(rows_a)} pairs on {PAR_SHARDS} shards"
+              f" == one device: {np.array_equal(*scores)} | launches {n}",
+              flush=True)
+        check(np.array_equal(*scores), f"score_read_batch {mode} on the mesh")
+        need(n, ["sw_score" if mode == "sw" else "sw_affine_score"], mode)
+    arr_a, len_a = encode.pad_batch(rows_a, pad_to=MAIN_PAD,
+                                    pad_value=int(encode.PAD_A))
+    arr_b, len_b = encode.pad_batch(rows_b, pad_to=MAIN_PAD,
+                                    pad_value=int(encode.PAD_B))
+    zero()
+    want = pipeline.make_wgs_step(one)(arr_a, arr_b, len_a, len_b)
+    steps = {"unpacked": pipeline.make_wgs_step(mesh)(arr_a, arr_b, len_a,
+                                                      len_b),
+             "packed": pipeline.make_wgs_step_packed(mesh)(
+                 packedmod.pack_batch(arr_a, len_a),
+                 packedmod.pack_batch(arr_b, len_b))}
+    n = counts()
+    for kind, got in steps.items():
+        same = all(torch.equal(got[k], want[k]) for k in want)
+        print(f"[22 wgs step {kind}] {PAR_SHARDS} shards == one shard on "
+              f"every key {same}: parity {int(got['parity_score'])}, sw sum "
+              f"{int(got['sw_score_sum'])} max {int(got['sw_score_max'])}, "
+              f"pairs {int(got['pairs'])}, complementary "
+              f"{int(got['complementary_pairs'])}, base_hist "
+              f"{got['base_hist'].tolist()}, kmer_hist sum "
+              f"{int(got['kmer_hist'].sum())}", flush=True)
+        check(same, f"the {kind} WGS step on the mesh != one shard")
+    check(n.get("sw_score") == 2 + 4 * PAR_SHARDS, f"WGS step launches {n}")
+
+    # the complementarity lane pair of phase 8
+    c1, c2 = (os.path.join(tmp, f"COMP_L001_R{k}_001.fastq.gz")
+              for k in (1, 2))
+    stats = []
+    for where in ({"device": device}, {"mesh": mesh}):
+        zero()
+        r = ComplementarityEngine(cfg, **where).analyze_lane_pair(c1, c2)
+        stats.append((r.pairs, r.direct_score_sum, r.comp_score_sum,
+                      r.perfect_pairs))
+        n = counts()
+    print(f"[22 complementarity] pairs, direct, comp, perfect {stats[1]} == "
+          f"one device {stats[0]} | launches {n}", flush=True)
+    check(stats[1] == stats[0], "--complementarity on the mesh")
+    need(n, ["sw_score"], "--complementarity")
+
+    # --variant-prep --gapped --rescue --genotype on the exact lane
+    for gap_model, moves in (("linear", "sw_moves"),
+                             ("affine", "sw_affine_moves")):
+        runs = []
+        for tag, where in (("one", {"device": device}), ("mesh",
+                                                          {"mesh": mesh})):
+            zero()
+            t0 = time.perf_counter()
+            eng = vp.VariantPrepEngine(fx["contigs"], cfg, gapped=True,
+                                       rescue=True, gap_model=gap_model,
+                                       **where)
+            runs.append(_vcf_sam_bytes(
+                eng, fx["exact"], os.path.join(tmp, f"par_{gap_model}_{tag}")))
+            n = counts()
+        same = (np.array_equal(runs[0]["pileup"], runs[1]["pileup"])
+                and runs[0]["vcf"] == runs[1]["vcf"]
+                and runs[0]["sam"] == runs[1]["sam"])
+        print(f"[22 variant-prep {gap_model}] --gapped --rescue --genotype "
+              f"(+ --sam-out), the {VP_EXACT_READS}-read lane on "
+              f"{PAR_SHARDS} shards == one device (pileup, "
+              f"{len(runs[1]['vcf'])} VCF bytes, {len(runs[1]['sam'])} SAM "
+              f"bytes): {same} | "
+              f"mapped {runs[1]['mapped']}, genotyped {runs[1]['called']} | "
+              f"launches {n} | {time.perf_counter() - t0:.2f} s", flush=True)
+        check(same, f"--variant-prep {gap_model} on the mesh")
+        need(n, ["sw_vs_ref", moves, "pairhmm"], f"--variant-prep {gap_model}")
+
+    # --kmer on the 100,000-read lane: summary and the full table (the
+    # dump's lines are written from it)
+    kruns = {}
+    t0 = time.perf_counter()
+    for tag, where in (("one", {"device": device}), ("mesh", {"mesh": mesh})):
+        eng = KmerEngine(cfg, k=21, **where)
+        summ = eng.count_file(fx["small"], result_mode="summary")
+        table = eng.count_file(fx["small"]).arrays
+        digest = hashlib.sha256(b"".join(x.tobytes() for x in table)
+                                ).hexdigest()
+        kruns[tag] = (summ.distinct_kmers, summ.total_kmers,
+                      summ.histogram(64).tolist(), summ.top(10), digest)
+    print(f"[22 kmer] {VP_SMALL_READS} reads on {PAR_SHARDS} shards: "
+          f"distinct {kruns['mesh'][0]}, summary == one device's "
+          f"{kruns['mesh'][:4] == kruns['one'][:4]}, full table sha256 "
+          f"{kruns['mesh'][4][:16]} == {kruns['one'][4][:16]} | "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    check(kruns["mesh"] == kruns["one"], "--kmer on the mesh")
+
+    # the long pair of phase 8 by row bands on a (1, PAR_SHARDS) seq mesh
+    seq = make_mesh((1, PAR_SHARDS), devices=[card] * PAR_SHARDS)
+    a = fasta.read_first_sequence(os.path.join(tmp, "long_a.fa"))
+    b = fasta.read_first_sequence(os.path.join(tmp, "long_b.fa"))
+    for affine, single, banded in (
+            (False, sw_long.sw_score_long, sw_long.sw_score_long_sharded),
+            (True, sw_long.sw_affine_score_long,
+             sw_long.sw_affine_score_long_sharded)):
+        name = "sw_long_affine" if affine else "sw_long"
+        zero()
+        score = banded(a, b, seq)
+        n = counts()
+        t_band = [time_once(lambda: banded(a, b, seq))[0] for _ in range(3)]
+        t_one = [time_once(lambda: single(a, b, device))[0] for _ in range(3)]
+        want = single(a, b, device)
+        sa, sb = long_pair(rng, PAR_SMALL_M, PAR_SMALL_N,
+                           seg=PAR_SMALL_N // 2, a_at=PAR_SMALL_M // 3,
+                           b_at=PAR_SMALL_N // 5, gap=17)
+        cpu4 = make_mesh((1, PAR_SHARDS),
+                         devices=[torch.device("cpu")] * PAR_SHARDS)
+        small = (banded(sa, sb, seq, strip_width=64),
+                 banded(sa, sb, cpu4, strip_width=64))
+        out[f"{name}_band_ms"] = statistics.median(t_band)
+        out[f"{name}_one_ms"] = statistics.median(t_one)
+        print(f"[22 bands {'affine' if affine else 'linear'}] {len(a)} x "
+              f"{len(b)} in {PAR_SHARDS} row bands: {score} == sw_score_long "
+              f"{want} | {out[f'{name}_band_ms']:.2f} ms (median of 3; one "
+              f"device {out[f'{name}_one_ms']:.2f} ms) | launches {n} | "
+              f"{PAR_SMALL_M} x {PAR_SMALL_N}: kernel bands {small[0]} == "
+              f"plain bands {small[1]}", flush=True)
+        check(score == want, f"{name}: bands {score} != one device {want}")
+        check(small[0] == small[1], f"{name}: kernel bands != plain bands")
+        check(n.get("sw_long", 0) >= PAR_SHARDS, f"{name} band launches {n}")
+
+    # the CLI under MPT_MESH_SHAPE=1 and 1x1 (the one card)
+    fa, fb = os.path.join(tmp, "long_a.fa"), os.path.join(tmp, "long_b.fa")
+    long_score = sw_long.sw_score_long(a, b, device)
+    for shape in ("1", "1x1"):
+        run_dir = os.path.join(tmp, f"par_cli_{shape}")
+        os.makedirs(run_dir)
+        cwd = os.getcwd()
+        os.chdir(run_dir)  # a fresh checkpoint directory
+        try:
+            with forced_env(MPT_MESH_SHAPE=shape,
+                            MPT_RESULTS_DIR=os.path.join(run_dir, "results")):
+                lines, wall = cli_lines(["--full-wgs", "--mode", "sw", "--env",
+                                         os.path.join(tmp, "smoke.env")])
+                scores = [int(ln.split("Score=")[1].split(",")[0])
+                          for ln in lines if "Score=" in ln]
+                llines, _ = cli_lines(["--long-align", "-1", fa, "-2", fb,
+                                       "--mode", "sw"])
+        finally:
+            os.chdir(cwd)
+        got = int(line_value(llines, "Alignment score:"))
+        print(f"[22 cli MPT_MESH_SHAPE={shape}] --full-wgs sw total "
+              f"{sum(scores)} over {len(scores)} files (2 x bases = "
+              f"{2 * total_bases}) in {wall:.2f} s | --long-align {got} "
+              f"(one device {long_score})", flush=True)
+        check(sum(scores) == 2 * total_bases and len(scores) == 4,
+              f"--full-wgs under MPT_MESH_SHAPE={shape}")
+        check(got == long_score, f"--long-align under MPT_MESH_SHAPE={shape}")
+
+    # --full-wgs in two processes over gloo, both on cuda:0
+    worker = os.path.join(tmp, "dist_worker.py")
+    with open(worker, "w") as f:
+        f.write(_DIST_WORKER)
+    env_file = os.path.join(tmp, "dist.env")
+    with open(env_file, "w") as f:
+        f.write(f"WGS_DATA_DIR={tmp}\nWGS_SAMPLE_ID=SMOKE\nWGS_LANES=2\n"
+                f"WGS_READS_PER_LANE=2\nGPU_CHUNK_SIZE_READS={CHUNK_READS}\n")
+    port = _free_port()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for pid in range(2):
+            d = os.path.join(tmp, f"dist{pid}")
+            os.makedirs(d)
+            env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(pid),
+                       MPT_RESULTS_DIR=os.path.join(d, "results"))
+            env.pop("MPT_MESH_SHAPE", None)
+            with open(os.path.join(d, "log.txt"), "wb") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, worker, repo, env_file,
+                     os.path.join(d, "out.json")], cwd=d, env=env,
+                    stdout=log, stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    want = (f"Global totals: DistributedTotals(files=4, reads={4 * FILE_READS}"
+            f", bases={total_bases}, score={2 * total_bases}, seconds_max=")
+    local_files = []
+    for pid, p in enumerate(procs):
+        with open(os.path.join(tmp, f"dist{pid}", "log.txt"), "rb") as f:
+            log = f.read().decode(errors="replace")
+        check(p.returncode == 0,
+              f"process {pid} exited {p.returncode}: {log[-2000:]}")
+        with open(os.path.join(tmp, f"dist{pid}", "out.json")) as f:
+            run = json.load(f)
+        glob = [ln for ln in run["lines"] if ln.startswith("Global totals:")]
+        host = [ln for ln in run["lines"]
+                if ln.startswith(f"[host {pid}/2] processing")]
+        print(f"[22 two processes] rank {pid}: rc {run['rc']} | "
+              f"{host[0] if host else 'no plan line'} | "
+              f"{glob[0] if glob else 'no totals'}", flush=True)
+        check(run["rc"] == 0 and len(glob) == 1 and glob[0].startswith(want),
+              f"rank {pid}'s merged totals are not the single process's")
+        local_files.append(int(host[0].split()[3].split("/")[0]))
+    print(f"[22 two processes] files per rank {local_files}, {wall:.2f} s "
+          "wall (both processes' start included)", flush=True)
+    check(sum(local_files) == 4 and min(local_files) > 0,
+          f"the files were not partitioned: {local_files}")
+    out["wall"] = time.perf_counter() - t_phase
+    print(f"[22 wall] phase 22: {out['wall']:.2f} s", flush=True)
+    return out
+
+
 def report_shares(kernels: list[dict], peak_instr: float) -> None:
     """Each kernel's time against its bound; for the int32 kernels also
     against the measured ceiling: the chain's instruction rate in place of
@@ -2698,6 +3056,7 @@ def main() -> int:
         phase_kmer(tmp, fx, env_path, device)
         phase_profiles(tmp, env_path, results_dir, fx, genotype["wall"])
         phase_tools(tmp, results_dir)
+        phase_parallel(rng, tmp, fx, main_pairs, total_bases, device)
     chain = phase_roofline(device)
     main_cells = float(MAIN_B) * MAIN_LEN * MAIN_LEN
     main_bytes = float(2 * MAIN_B * MAIN_PAD + 4 * MAIN_B)

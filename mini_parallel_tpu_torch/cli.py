@@ -12,8 +12,14 @@ plus its additions). Ported: ``--full-wgs``, ``--test-wgs``, direct
 ``torch.profiler`` trace of the whole run in the TensorBoard/Chrome trace
 layout). ``--full-wgs`` runs under the system monitors
 (utils/perf_logger.py: ``logs/run_N/``) and attaches their summary to its
-benchmark row. ``MPT_MESH_SHAPE`` is accepted and exits 2 with "not yet
-ported".
+benchmark row. ``MPT_MESH_SHAPE`` (e.g. "4" or "1x4") shards every engine's
+batches over a device mesh (parallel/mesh.py): every local card, or with
+``--allow-cpu`` that many CPU shards; a mesh with a ``seq`` axis runs
+``--long-align`` by row bands. With ``JAX_COORDINATOR_ADDRESS`` (and
+``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``, the JAX CLI's variables) the
+process joins a gloo process group first, and ``--full-wgs`` splits the
+files across the processes and prints the merged ``Global totals``
+(parallel/distributed.py).
 
     python -m mini_parallel_tpu_torch --full-wgs --mode sw
     python -m mini_parallel_tpu_torch --files -1 R1.fastq.gz -2 R2.fastq.gz
@@ -24,6 +30,9 @@ ported".
     python -m mini_parallel_tpu_torch --kmer L1.fastq.gz,L2.fastq.gz -k 21 \
         --canonical --kmer-out counts.tsv
     python -m mini_parallel_tpu_torch --full-wgs --mode sw --profile traces/
+    MPT_MESH_SHAPE=8 python -m mini_parallel_tpu_torch --full-wgs --allow-cpu
+    JAX_COORDINATOR_ADDRESS=localhost:29500 JAX_NUM_PROCESSES=2 \
+        JAX_PROCESS_ID=0 python -m mini_parallel_tpu_torch --full-wgs
 
 A CUDA device is mandatory, as the reference's GPU was (main.rs:76-79),
 unless ``--allow-cpu`` asks for the CPU explicitly.
@@ -33,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import math
 import os
 import socket
 import sys
@@ -44,8 +54,8 @@ from mini_parallel_tpu_torch.utils import config as config_mod
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="mini_parallel_tpu_torch",
-        description="Sequence alignment and variant-call prep on one CUDA "
-        "GPU: the PyTorch port of mini_parallel_tpu (--full-wgs, --test-wgs, "
+        description="Sequence alignment and variant-call prep on CUDA "
+        "GPUs: the PyTorch port of mini_parallel_tpu (--full-wgs, --test-wgs, "
         "--files, --complementarity, --long-align, --variant-prep, --kmer, "
         "direct pairs).",
     )
@@ -160,6 +170,13 @@ def profiled(trace_dir: str, cuda: bool, echo=print):
 def main(argv: list[str] | None = None, echo=print) -> int:
     args = build_parser().parse_args(argv)
     config_mod.load_dotenv(args.env)  # main.rs:50
+    from mini_parallel_tpu_torch.parallel.mesh import initialize_distributed
+
+    try:  # a process of a multi-process run joins its group first
+        initialize_distributed()
+    except ValueError as e:
+        echo(f"ERROR: {e}")
+        return 1
     env = dict(os.environ)
     if args.chunk_size is not None:
         env["GPU_CHUNK_SIZE_READS"] = str(args.chunk_size)
@@ -219,23 +236,30 @@ def _dispatch(args, cfg, echo) -> int:
     except NoAcceleratorError as e:
         echo(f"ERROR: {e}")
         return 1  # GPU-mandatory behavior, main.rs:76-79,160-163
-    try:
-        engine = AlignmentEngine(cfg, device=device)
-    except NotImplementedError as e:  # MPT_MESH_SHAPE: parallel/ is not ported
-        echo(f"ERROR: {e}")
-        return 2
+    mesh = None
+    if cfg.mesh_shape:  # MPT_MESH_SHAPE: shard batches over local devices
+        from mini_parallel_tpu_torch.parallel.mesh import make_mesh
+
+        try:
+            mesh = make_mesh(cfg.mesh_shape, devices=(
+                [device] * math.prod(cfg.mesh_shape)
+                if device.type == "cpu" else None))
+        except ValueError as e:
+            echo(f"ERROR: {e}")
+            return 1
+    engine = AlignmentEngine(cfg, device=device, mesh=mesh)
     echo(get_system_info(device).banner())
 
     if args.full_wgs:  # main.rs:72-124
         return _full_wgs(args, cfg, engine, echo)
     if args.variant_prep:
-        return _variant_prep(args, cfg, device, echo)
+        return _variant_prep(args, cfg, device, mesh, echo)
     if args.complementarity:
-        return _complementarity(args, cfg, device, echo)
+        return _complementarity(args, cfg, device, mesh, echo)
     if args.kmer:
-        return _kmer(args, cfg, device, echo)
+        return _kmer(args, cfg, device, mesh, echo)
     if args.long_align:
-        return _long_align(args, cfg, device, echo)
+        return _long_align(args, cfg, device, mesh, echo)
     if args.files:  # main.rs:170-182
         try:
             res = engine.pair_align_files(args.seq1, args.seq2, progress=echo)
@@ -258,6 +282,9 @@ def _full_wgs(args, cfg, engine, echo) -> int:
     perf_logger.rs:77-82, then wrote a fixed 25% into its results,
     benchmark.rs:159)."""
     from mini_parallel_tpu_torch.models.wgs import process_full_wgs_dataset
+    from mini_parallel_tpu_torch.parallel.distributed import (
+        process_full_wgs_distributed,
+    )
     from mini_parallel_tpu_torch.utils.bench_tracker import annotate_run
     from mini_parallel_tpu_torch.utils.perf_logger import (
         summarize_monitor_logs,
@@ -265,10 +292,17 @@ def _full_wgs(args, cfg, engine, echo) -> int:
     )
 
     bench_runs: list[int] = []
+    on_bench = lambda b: bench_runs.append(b.run_number)  # noqa: E731
     with system_monitors(device=engine.device) as mon:
-        results = process_full_wgs_dataset(
-            engine, cfg, echo=echo, retries=args.retries,
-            on_bench=lambda b: bench_runs.append(b.run_number))
+        if os.environ.get("JAX_COORDINATOR_ADDRESS"):
+            results, merged = process_full_wgs_distributed(
+                engine, cfg, echo=echo, retries=args.retries,
+                on_bench=on_bench)
+            echo(f"Global totals: {merged}")
+        else:
+            results = process_full_wgs_dataset(
+                engine, cfg, echo=echo, retries=args.retries,
+                on_bench=on_bench)
     summary = summarize_monitor_logs(mon.run_dir)
     if summary:
         echo(f"Monitor summary ({mon.run_dir}): {summary}")
@@ -278,7 +312,7 @@ def _full_wgs(args, cfg, engine, echo) -> int:
     return 0
 
 
-def _variant_prep(args, cfg, device, echo) -> int:
+def _variant_prep(args, cfg, device, mesh, echo) -> int:
     if not args.reference:
         echo("ERROR: --variant-prep requires --reference FASTA")
         return 2
@@ -301,7 +335,8 @@ def _variant_prep(args, cfg, device, echo) -> int:
         veng = VariantPrepEngine(recs, cfg, gapped=args.gapped,
                                  rescue=args.rescue,
                                  min_base_quality=args.min_base_quality,
-                                 gap_model=args.gap_model, device=device)
+                                 gap_model=args.gap_model, device=device,
+                                 mesh=mesh)
         paths = args.variant_prep.split(",")
         res = veng.process_file(
             paths if len(paths) > 1 else paths[0], progress=echo,
@@ -332,13 +367,13 @@ def _variant_prep(args, cfg, device, echo) -> int:
     return 0
 
 
-def _complementarity(args, cfg, device, echo) -> int:
+def _complementarity(args, cfg, device, mesh, echo) -> int:
     from mini_parallel_tpu_torch.models.complementarity import (
         ComplementarityEngine,
     )
 
     ceng = ComplementarityEngine(cfg, mode=cfg.mode if args.mode else "sw",
-                                 device=device)
+                                 device=device, mesh=mesh)
     try:
         res = ceng.analyze_lane_pair(args.seq1, args.seq2, progress=echo)
     except (OSError, IOError) as e:
@@ -353,11 +388,11 @@ def _complementarity(args, cfg, device, echo) -> int:
     return 0
 
 
-def _kmer(args, cfg, device, echo) -> int:
+def _kmer(args, cfg, device, mesh, echo) -> int:
     from mini_parallel_tpu_torch.models.kmer_model import KmerEngine
 
     eng = KmerEngine(cfg, k=args.kmer_size, canonical=args.canonical,
-                     device=device)
+                     device=device, mesh=mesh)
     try:
         paths = args.kmer.split(",")
         res = eng.count_file(
@@ -383,9 +418,10 @@ def _kmer(args, cfg, device, echo) -> int:
     return 0
 
 
-def _long_align(args, cfg, device, echo) -> int:
+def _long_align(args, cfg, device, mesh, echo) -> int:
     from mini_parallel_tpu_torch.io import fasta
     from mini_parallel_tpu_torch.ops import sw_long
+    from mini_parallel_tpu_torch.parallel.mesh import SEQ_AXIS
 
     # cfg.mode already reflects --mode or the env's MPT_MODE; modes without
     # a long-pair engine (kadane/contiguous defaults) fall back to true SW
@@ -401,12 +437,20 @@ def _long_align(args, cfg, device, echo) -> int:
     t0 = time.perf_counter()
     # rows run along the longer side (fewer, fuller strips)
     a, b = (sa, sb) if len(sa) >= len(sb) else (sb, sa)
-    if mode == "sw":
-        score = sw_long.sw_score_long(a, b, device, progress=echo)
-    else:
-        score = sw_long.sw_affine_score_long(
-            a, b, device, gap_open=cfg.gap_open, gap_extend=cfg.gap_extend,
-            progress=echo)
+    gaps = {} if mode == "sw" else dict(gap_open=cfg.gap_open,
+                                        gap_extend=cfg.gap_extend)
+    try:
+        if mesh is not None and SEQ_AXIS in mesh.axis_names:
+            fn = (sw_long.sw_score_long_sharded if mode == "sw"
+                  else sw_long.sw_affine_score_long_sharded)
+            score = fn(a, b, mesh, progress=echo, **gaps)
+        else:
+            fn = (sw_long.sw_score_long if mode == "sw"
+                  else sw_long.sw_affine_score_long)
+            score = fn(a, b, device, progress=echo, **gaps)
+    except ValueError as e:  # e.g. more row bands than rows on a seq mesh
+        echo(f"ERROR: {e}")
+        return 1
     dt = time.perf_counter() - t0
     echo(f"Alignment score: {score}")
     echo(f"Processing time: {dt:.2f} s "

@@ -17,6 +17,19 @@
 //      (affine), best (1,) raised by atomicMax to max(0, max of H over the
 //      group's cells); the caller zeroes it.
 // With one strip (W = Wtot) this is the one-strip contract.
+//
+// Row bands (ops/sw_long.py: the sharded host loop cuts the rows into
+// bands, and a band below the first has a real top row). Optional:
+//   top_h (Wtot + 1,) int32 = [H[r0-1][j0-1], H[r0-1][j0 .. j0+Wtot-1]]:
+//         the row above the group's first row r0, led by the corner the
+//         first column's diagonal needs;
+//   top_e (Wtot,) int32 = E[r0-1][j0 ..] (affine);
+//   -> bottom_h (Wtot + 1,) = [left_h[M-1], H[r0+M-1][j0 ..]] and
+//      bottom_e (Wtot,) = E[r0+M-1][j0 ..] (affine): the group's last row,
+//      laid out as the next band's top row.
+// The rows come all together or not at all. Without them the true edge
+// (H = 0, E = NEG) holds, and a variant compiled without the band code
+// (kBand = false) runs: callers without bands see the contract above.
 // Linear: H = max(0, H[i-1][j-1] + s, H[i-1][j] - 2, H[i][j-1] - 2).
 // Affine, in the JAX long engine's names (gap of length L costs go + L*ge):
 //   E[i][j] = max(E[i-1][j], H[i-1][j] + go) + ge   (gap along i: stays in
@@ -24,7 +37,8 @@
 //   F[i][j] = max(F[i][j-1], H[i][j-1] + go) + ge   (gap along j: crosses
 //                                                    strips, so it is carried)
 //   H[i][j] = max(0, H[i-1][j-1] + s, E[i][j], F[i][j]).
-// s = +2 on equal bytes, -1 otherwise; the top row sees H = 0, E = NEG.
+// s = +2 on equal bytes, -1 otherwise; without a top row the row above
+// the first sees H = 0, E = NEG.
 // W and Wtot are multiples of kCols (the host pads b with PAD_B columns,
 // which never raise the max and whose right column is not used).
 //
@@ -52,6 +66,10 @@
 //     block holds, whatever the scheduling and however many blocks fit;
 //     a wait that outlasts kSpinLimitNs traps (the launch fails) rather
 //     than hanging;
+//   * a band's row above only seeds those registers before the sweep, and
+//     its last row is written from them after it: the step loop is the
+//     same with or without bands (a template flag, kBand, compiles the
+//     band variant apart);
 //   * the best score meets in one int32 atomicMax per warp and strip;
 //   * int32 state is exact (|H| <= 2 min(M, N)); NEG = -2^24 only ever
 //     meets H + go with H >= 0, so it never accumulates.
@@ -113,6 +131,10 @@ struct Group {
   const int32_t* left_f;
   int32_t* right_h;
   int32_t* right_f;
+  const int32_t* top_h;  // (Wtot + 1): corner, then the row above; or null
+  const int32_t* top_e;  // (Wtot): E of the row above (affine); or null
+  int32_t* bottom_h;     // (Wtot + 1): left_h[M-1], then the last row
+  int32_t* bottom_e;     // (Wtot): E of the last row (affine)
   int32_t* buf_h;   // (S - 1) x M: the right H column of strips 0..S-2
   int32_t* buf_f;   // the same for F (affine)
   int* flags;       // S - 1 published row counts, then the ticket counter
@@ -120,7 +142,7 @@ struct Group {
   int M, W, Wtot, S, go, ge;
 };
 
-template <bool kAffine, bool kOneWarp>
+template <bool kAffine, bool kOneWarp, bool kBand>
 __device__ __forceinline__ void sweep_strip(const Group& g, int k,
                                             int (*hand_h)[kMaxWarps],
                                             int (*hand_f)[kMaxWarps]) {
@@ -141,17 +163,20 @@ __device__ __forceinline__ void sweep_strip(const Group& g, int k,
   const int* in_count = k == 0 ? nullptr : g.flags + (k - 1);
   int* out_count = last ? nullptr : g.flags + k;
 
+  const int col0 = j0 + t * kCols;  // the group's index of column 0
+  const bool top = kBand && has_cols;
   int bc[kCols];  // b of this thread's columns
   int hu[kCols];  // H of each column at the row above
   int eu[kCols];  // E of each column at the row above (affine)
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
-    bc[c] = has_cols ? (int)g.b[j0 + t * kCols + c] : kNoB;
-    hu[c] = 0;
-    eu[c] = kNeg;
+    bc[c] = has_cols ? (int)g.b[col0 + c] : kNoB;
+    hu[c] = top ? g.top_h[1 + col0 + c] : 0;
+    eu[c] = kAffine && top ? g.top_e[col0 + c] : kNeg;
   }
+  if (kBand && k == 0 && t == 0) g.bottom_h[0] = lh[M - 1];
   int best = 0;
-  int diag_in = 0;               // H[i-1][first column - 1]
+  int diag_in = top ? g.top_h[col0] : 0;  // H[i-1][first column - 1]
   int pub_h = 0;                 // H of this thread's last column, its row
   int pub_f = kNeg;              // F of the same cell (affine)
   int a_cur = (int)g.a[0];       // a of this thread's next row
@@ -241,11 +266,19 @@ __device__ __forceinline__ void sweep_strip(const Group& g, int k,
       __syncthreads();
     }
   }
+  // a thread's last step was its row M - 1: its registers hold that row
+  if (top) {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      g.bottom_h[1 + col0 + c] = hu[c];
+      if (kAffine) g.bottom_e[col0 + c] = eu[c];
+    }
+  }
   best = __reduce_max_sync(kFullMask, best);
   if (lane == 0 && best > 0) atomicMax(g.best, best);
 }
 
-template <bool kAffine, bool kOneWarp>
+template <bool kAffine, bool kOneWarp, bool kBand>
 __global__ void __launch_bounds__(kOneWarp ? 32 : kMaxThreads)
 sw_group_kernel(const Group g) {
   // hand-off of the last column between warps, by step parity
@@ -259,7 +292,7 @@ sw_group_kernel(const Group g) {
     const int k = ticket;
     __syncthreads();  // every thread has read the ticket
     if (k >= g.S) return;
-    sweep_strip<kAffine, kOneWarp>(g, k, hand_h, hand_f);
+    sweep_strip<kAffine, kOneWarp, kBand>(g, k, hand_h, hand_f);
   }
 }
 
@@ -273,14 +306,15 @@ int check_shape(int M, int W, int Wtot) {
 unsigned threads_for(int W) { return (unsigned)((W / kCols + 31) / 32 * 32); }
 
 // Blocks of sw_group_kernel that the card holds at once, or -1.
-template <bool kAffine, bool kOneWarp>
+template <bool kAffine, bool kOneWarp, bool kBand>
 long long resident(unsigned threads) {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, sw_group_kernel<kAffine, kOneWarp>, (int)threads, 0) !=
+          &per_sm, sw_group_kernel<kAffine, kOneWarp, kBand>, (int)threads,
+          0) !=
           cudaSuccess) {
     return -1;
   }
@@ -290,14 +324,14 @@ long long resident(unsigned threads) {
 template <bool kAffine>
 long long resident_for(int W) {
   const unsigned threads = threads_for(W);
-  return threads == 32 ? resident<kAffine, true>(threads)
-                       : resident<kAffine, false>(threads);
+  return threads == 32 ? resident<kAffine, true, false>(threads)
+                       : resident<kAffine, false, false>(threads);
 }
 
-template <bool kAffine, bool kOneWarp>
+template <bool kAffine, bool kOneWarp, bool kBand>
 int launch(const Group& g, unsigned threads, cudaStream_t stream) {
   // every block that fits at once; tickets keep any count correct
-  const long long fit = resident<kAffine, kOneWarp>(threads);
+  const long long fit = resident<kAffine, kOneWarp, kBand>(threads);
   if (fit <= 0) {
     const cudaError_t q = cudaGetLastError();
     return (int)(q ? q : cudaErrorInvalidValue);
@@ -306,7 +340,8 @@ int launch(const Group& g, unsigned threads, cudaStream_t stream) {
   cudaError_t e = cudaMemsetAsync(g.flags, 0, sizeof(int) * (size_t)g.S,
                                   stream);
   if (e) return (int)e;
-  sw_group_kernel<kAffine, kOneWarp><<<blocks, threads, 0, stream>>>(g);
+  sw_group_kernel<kAffine, kOneWarp, kBand><<<blocks, threads, 0, stream>>>(
+      g);
   return (int)cudaGetLastError();
 }
 
@@ -316,10 +351,19 @@ int launch_group(Group g, void* stream) {
   g.S = (g.Wtot + g.W - 1) / g.W;
   if (g.S > 1 && (g.buf_h == nullptr || (kAffine && g.buf_f == nullptr)))
     return (int)cudaErrorInvalidValue;
+  // a band gives every row pointer, a group without one none of them
+  const bool band = g.top_h != nullptr;
+  if (band != (g.bottom_h != nullptr) ||
+      (kAffine && (band != (g.top_e != nullptr) ||
+                   band != (g.bottom_e != nullptr))))
+    return (int)cudaErrorInvalidValue;
   const unsigned threads = threads_for(g.W);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return threads == 32 ? launch<kAffine, true>(g, threads, s)
-                       : launch<kAffine, false>(g, threads, s);
+  if (band)
+    return threads == 32 ? launch<kAffine, true, true>(g, threads, s)
+                         : launch<kAffine, false, true>(g, threads, s);
+  return threads == 32 ? launch<kAffine, true, false>(g, threads, s)
+                       : launch<kAffine, false, false>(g, threads, s);
 }
 
 }  // namespace
@@ -336,16 +380,20 @@ long long sw_long_resident_blocks(int W, int affine) {
 // Strip widths W and group widths Wtot must be multiples of kCols = 16,
 // W at most 8192 (ops/sw_long.py: WIDTH_MULTIPLE, MAX_STRIP_WIDTH). The
 // group has S = ceil(Wtot / W) strips; buf_h (and buf_f) hold (S - 1) x M
-// int32 (null when S = 1) and flags S int32, zeroed here. Each entry
-// launches on `stream` and returns cudaGetLastError().
+// int32 (null when S = 1) and flags S int32, zeroed here. top_* and
+// bottom_* are a band's rows (all given, or all null for the true edge).
+// Each entry launches on `stream` and returns cudaGetLastError().
 int sw_long_group_launch(const void* a, int M, const void* b, int W,
                          int Wtot, const void* left_h, void* right_h,
-                         void* buf_h, void* flags, void* best, void* stream) {
+                         const void* top_h, void* bottom_h, void* buf_h,
+                         void* flags, void* best, void* stream) {
   Group g{};
   g.a = static_cast<const uint8_t*>(a);
   g.b = static_cast<const uint8_t*>(b);
   g.left_h = static_cast<const int32_t*>(left_h);
   g.right_h = static_cast<int32_t*>(right_h);
+  g.top_h = static_cast<const int32_t*>(top_h);
+  g.bottom_h = static_cast<int32_t*>(bottom_h);
   g.buf_h = static_cast<int32_t*>(buf_h);
   g.flags = static_cast<int*>(flags);
   g.best = static_cast<int*>(best);
@@ -358,7 +406,9 @@ int sw_long_group_launch(const void* a, int M, const void* b, int W,
 int sw_affine_long_group_launch(const void* a, int M, const void* b, int W,
                                 int Wtot, const void* left_h,
                                 const void* left_f, void* right_h,
-                                void* right_f, void* buf_h, void* buf_f,
+                                void* right_f, const void* top_h,
+                                const void* top_e, void* bottom_h,
+                                void* bottom_e, void* buf_h, void* buf_f,
                                 void* flags, void* best, int gap_open,
                                 int gap_extend, void* stream) {
   if (gap_open > 0 || gap_extend > 0) return (int)cudaErrorInvalidValue;
@@ -369,6 +419,10 @@ int sw_affine_long_group_launch(const void* a, int M, const void* b, int W,
   g.left_f = static_cast<const int32_t*>(left_f);
   g.right_h = static_cast<int32_t*>(right_h);
   g.right_f = static_cast<int32_t*>(right_f);
+  g.top_h = static_cast<const int32_t*>(top_h);
+  g.top_e = static_cast<const int32_t*>(top_e);
+  g.bottom_h = static_cast<int32_t*>(bottom_h);
+  g.bottom_e = static_cast<int32_t*>(bottom_e);
   g.buf_h = static_cast<int32_t*>(buf_h);
   g.buf_f = static_cast<int32_t*>(buf_f);
   g.flags = static_cast<int*>(flags);

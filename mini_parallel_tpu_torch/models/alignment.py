@@ -1,5 +1,4 @@
-"""Alignment engine: the counterpart of mini_parallel_tpu/models/alignment.py
-on one device.
+"""Alignment engine: the counterpart of mini_parallel_tpu/models/alignment.py.
 
 Maps the reference orchestration (`smith_waterman/src/aligner.rs`) onto
 batched device calls: chunks are staged into padded uint8 buckets, scores
@@ -17,7 +16,15 @@ Scoring modes:
 - ``contiguous``: contiguous Kadane, exact via the segment monoid.
 
 Direct pairs longer than LONG_PAIR_THRESHOLD take the column-strip engine
-(ops/sw_long.py). Device meshes are not ported yet (NotImplementedError).
+(ops/sw_long.py).
+
+With a device mesh (``mesh=``, parallel/mesh.py) the self-alignment sums
+and the per-pair scores of packed batches shard data-parallel: rows are
+padded to the shard count with zero-length rows (which score 0 by the
+sentinel and min-length contracts), each shard runs the same scorer on its
+device, and the sums merge in shard order (parallel/collectives.py).
+Without a mesh the same path runs on a mesh of one shard, the engine's
+device.
 """
 
 from __future__ import annotations
@@ -36,6 +43,13 @@ from mini_parallel_tpu_torch.ops import packed as packedmod
 from mini_parallel_tpu_torch.ops.sw_cuda import (
     sw_affine_batch_best,
     sw_score_batch_best,
+)
+from mini_parallel_tpu_torch.parallel import collectives
+from mini_parallel_tpu_torch.parallel.mesh import (
+    engine_mesh,
+    mesh_device,
+    pad_to_shards,
+    shard_batch,
 )
 from mini_parallel_tpu_torch.utils.config import Config
 from mini_parallel_tpu_torch.utils.system_info import get_system_info
@@ -105,7 +119,8 @@ class PairResult:
 
 
 class AlignmentEngine:
-    """Host-side orchestrator for alignment scoring on one device."""
+    """Host-side orchestrator for alignment scoring on one device, or on
+    the shards of a device mesh."""
 
     # Direct sw / sw-affine pairs above this length take the column-strip
     # engine (ops/sw_long.py): exact scores, O(M+N) memory, no launch-size
@@ -113,15 +128,16 @@ class AlignmentEngine:
     LONG_PAIR_THRESHOLD = 2048
 
     def __init__(self, cfg: Config | None = None, mode: str | None = None,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None, mesh=None):
         self.cfg = cfg or Config(chunk_size_reads=10_000)
         self.mode = mode or self.cfg.mode
         if self.mode not in MODES:
             raise ValueError(f"unknown mode {self.mode!r}")
-        if self.cfg.mesh_shape:
-            raise NotImplementedError(
-                "device meshes (MPT_MESH_SHAPE) are not yet ported")
-        self.device = require_cuda(device)
+        # read batches shard data-parallel over the mesh's first axis (no
+        # mesh: one shard, the device); everything unsharded runs on its
+        # first device
+        self.device = require_cuda(mesh_device(mesh, device))
+        self.mesh = engine_mesh(mesh, self.device)
         # batch shapes whose first result has been awaited; that first wait
         # is charged to warmup_seconds instead of drain_seconds
         self._warm_shapes: set = set()
@@ -168,8 +184,32 @@ class AlignmentEngine:
                          lens: np.ndarray) -> torch.Tensor:
         """Pack a self-alignment batch and queue its device score sum."""
         pb = packedmod.pack_batch(arr, lens)
-        return self._packed_fn(kind, "self")(
-            *packedmod.device_args(pb, self.device))
+        fn = self._packed_fn(kind, "self")
+        return collectives.merge_scores(
+            [fn(*args) for args in packedmod.put_sharded(pb, self.mesh)])
+
+    def _self_sum(self, kind: str, arr_a: np.ndarray, arr_b: np.ndarray,
+                  len_a: np.ndarray, len_b: np.ndarray) -> torch.Tensor:
+        """Queue the device score sum of an unpacked batch: the rows are
+        padded to the shard count (PAD_A / PAD_B rows of length 0 score 0)
+        and the shards' sums merge. A batch scored against itself goes to
+        the devices once."""
+        n = len(self.mesh.axis_devices())
+        extra = pad_to_shards(max(arr_a.shape[0], 1), n) - arr_a.shape[0]
+        if extra:
+            arr_a = np.pad(arr_a, ((0, extra), (0, 0)),
+                           constant_values=encode.PAD_A)
+            arr_b = np.pad(arr_b, ((0, extra), (0, 0)),
+                           constant_values=encode.PAD_B)
+            len_a, len_b = (np.pad(np.asarray(x, np.int32), (0, extra))
+                            for x in (len_a, len_b))
+        if arr_b is arr_a and len_b is len_a:
+            return collectives.merge_scores(
+                [self._local_scores(kind, a, a, la, la).sum() for a, la in
+                 shard_batch(self.mesh, (arr_a, len_a))])
+        return collectives.merge_scores(
+            [self._local_scores(kind, *shard).sum() for shard in
+             shard_batch(self.mesh, (arr_a, arr_b, len_a, len_b))])
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
@@ -196,9 +236,14 @@ class AlignmentEngine:
         if self.cfg.packed_transfer and pad % 4 == 0:
             pa = packedmod.pack_batch(arr_a, len_a)
             pb = packedmod.pack_batch(arr_b, len_b)
-            out = self._packed_fn(self.mode, "pair")(
-                *packedmod.device_args(pa, self.device),
-                *packedmod.device_args(pb, self.device))
+            fn = self._packed_fn(self.mode, "pair")
+            # each shard's scores, gathered in row order; the pad rows past
+            # B are cut off
+            out = collectives.concat_rows([
+                fn(*sa, *sb)
+                for sa, sb in zip(packedmod.put_sharded(pa, self.mesh),
+                                  packedmod.put_sharded(pb, self.mesh))
+            ])[:pa.batch]
         else:
             out = self._local_scores(
                 self.mode, self._to_device(arr_a), self._to_device(arr_b),
@@ -309,6 +354,7 @@ class AlignmentEngine:
         resume=None,
         checkpoint_every: int = 0,
         on_checkpoint=None,
+        chunk_stride: tuple[int, int] | None = None,
     ) -> FileResult:
         """--full-wgs per-file loop: chunked self-alignment
         (aligner.rs:262-295), several chunk-concats per device call.
@@ -319,6 +365,11 @@ class AlignmentEngine:
         ``checkpoint_every`` > 0 drains the device accumulator every N
         chunks and calls ``on_checkpoint(res)``. Chunk scores are
         independent sums, so skip+seed is bit-exact.
+
+        ``chunk_stride=(p, n)``: the shared-file mode of
+        parallel/distributed.py — this process scores only the chunks
+        whose index is p mod n (the stripes of n processes merge exactly),
+        and ``chunks_done`` of a resume counts OWNED chunks.
         """
         res = FileResult(file_path=path)
         start_chunk = 0
@@ -377,8 +428,7 @@ class AlignmentEngine:
             key = ("concat", kind, pad, len(batch))
             if self.cfg.packed_transfer and pad % 4 == 0:
                 return warm(key, self._packed_self_sum(kind, arr, lens))
-            a, ln = self._to_device(arr), self._to_device(lens)
-            return warm(key, self._local_scores(kind, a, a, ln, ln).sum())
+            return warm(key, self._self_sum(kind, arr, arr, lens, lens))
 
         def skip_failed(e: Exception):
             # reference semantics (aligner.rs:284-287): log the per-chunk
@@ -417,7 +467,11 @@ class AlignmentEngine:
         with fastq.prefetch(fastq.iter_flat_chunks(
                 path, self.cfg.chunk_size_reads, progress=progress)) as chunks_it:
             for idx, (flat, offs) in enumerate(chunks_it):
-                if idx < start_chunk:  # resume: already scored in a prior run
+                if chunk_stride is not None:
+                    p, n = chunk_stride
+                    if idx % n != p or idx // n < start_chunk:
+                        continue
+                elif idx < start_chunk:  # resume: scored in a prior run
                     continue
                 n_reads = len(offs) - 1
                 res.total_reads += n_reads
@@ -463,10 +517,8 @@ class AlignmentEngine:
                 arr_b = np.where(
                     np.arange(pad, dtype=np.int32)[None, :] < la[:, None],
                     arr_a, encode.PAD_B)
-                scores = self._local_scores(
-                    self.mode, self._to_device(arr_a), self._to_device(arr_b),
-                    None, None)
-                enqueue(warm(key, scores.sum()), bound)
+                enqueue(warm(key, self._self_sum(self.mode, arr_a, arr_b,
+                                                 la, la)), bound)
         except Exception as e:
             skip_failed(e)
 

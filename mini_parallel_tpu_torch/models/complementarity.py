@@ -1,6 +1,5 @@
 """Direct + complementary lane-pair alignment, the % non-complementary
-metric: the counterpart of mini_parallel_tpu/models/complementarity.py on
-one device.
+metric: the counterpart of mini_parallel_tpu/models/complementarity.py.
 
 The reference README's stated WGS goal (`README.md:14-16`): "find what %
 of genome is not perfectly complementary". For each mate pair
@@ -14,6 +13,11 @@ of genome is not perfectly complementary". For each mate pair
   aligns end to end, all matches, against the reverse complement of r2.
 
 % non-complementary = 1 - perfect_pairs / pairs.
+
+With a device mesh, packed mate batches shard data-parallel: pad pairs of
+length 0 score 0 and are never perfect, and the three sums merge in shard
+order (parallel/collectives.py). Without a mesh the same path runs on a
+mesh of one shard, the engine's device.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from mini_parallel_tpu_torch.io import fastq
 from mini_parallel_tpu_torch.ops import encode, kadane
 from mini_parallel_tpu_torch.ops import packed as packedmod
 from mini_parallel_tpu_torch.ops.sw_cuda import sw_score_batch_best
+from mini_parallel_tpu_torch.parallel import collectives
+from mini_parallel_tpu_torch.parallel.mesh import engine_mesh, mesh_device
 from mini_parallel_tpu_torch.utils.config import Config
 
 
@@ -85,10 +91,11 @@ def _stat_sums(direct, comp, perfect) -> torch.Tensor:
 
 class ComplementarityEngine:
     def __init__(self, cfg: Config | None = None, mode: str = "sw",
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None, mesh=None):
         self.cfg = cfg or Config(chunk_size_reads=10_000)
         self.mode = mode
-        self.device = require_cuda(device)
+        self.device = require_cuda(mesh_device(mesh, device))
+        self.mesh = engine_mesh(mesh, self.device)
 
     def _pad_for_len(self, maxlen: int) -> int:
         """The one bucket rule: a multiple of 8 (not a power of two)."""
@@ -106,12 +113,12 @@ class ComplementarityEngine:
         arr2, len2 = encode.pad_batch_flat(
             f2[: int(o2[-1])], o2, pad_to=pad, pad_value=int(encode.PAD_B))
         if self.cfg.packed_transfer and pad % 4 == 0:
-            return _pair_stats_packed(
-                *packedmod.device_args(packedmod.pack_batch(arr1, len1),
-                                       self.device),
-                *packedmod.device_args(packedmod.pack_batch(arr2, len2),
-                                       self.device),
-                mode=self.mode)
+            p1 = packedmod.pack_batch(arr1, len1)
+            p2 = packedmod.pack_batch(arr2, len2)
+            return collectives.merge_scores([
+                _pair_stats_packed(*s1, *s2, mode=self.mode)
+                for s1, s2 in zip(packedmod.put_sharded(p1, self.mesh),
+                                  packedmod.put_sharded(p2, self.mesh))])
         a, b, la, lb = (torch.from_numpy(x).to(self.device)
                         for x in (arr1, arr2, len1, len2))
         return _stat_sums(*_pair_scores(a, b, la, lb, self.mode))

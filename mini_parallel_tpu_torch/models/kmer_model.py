@@ -1,5 +1,5 @@
 """k-mer counting pipeline, FASTQ lanes -> exact k-mer counts: the
-counterpart of mini_parallel_tpu/models/kmer_model.py on one device.
+counterpart of mini_parallel_tpu/models/kmer_model.py.
 
 BASELINE.json config 3: "k-mer counting (k=21) over one FASTQ lane with
 exact count parity". Reads cross to the device 2-bit packed
@@ -8,12 +8,16 @@ exact count parity". Reads cross to the device 2-bit packed
 ``DeviceKmerAccumulator`` until one drain at the end, or a summary that
 never drains the table. The host-store path (``device_accumulate=False``)
 fetches each batch's distinct keys into the native hash store
-(native/kmer_store.cpp), or a dict where that library is not built.
+(native/kmer_store.cpp), or a dict where that library is not built. A
+device mesh (``mesh=``) takes the host-store path: each shard sorts and
+dedups its rows on its device, and the store merges every shard's distinct
+keys. In summary mode the host-store path keeps the summary (distinct
+count, histogram, top-N) of the merged store and no table, as the device
+path does.
 
 Keys are one int64 (ops/kmer.py); checkpoints keep the JAX package's
 ``.npz`` layout (``hi``, ``lo`` int32, ``ct`` int64, ``meta`` JSON), so a
-checkpoint of either package resumes in the other. Device meshes are not
-ported yet (NotImplementedError).
+checkpoint of either package resumes in the other.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from mini_parallel_tpu_torch.native import BuildError, kmer_store
 from mini_parallel_tpu_torch.ops import encode, kmer
 from mini_parallel_tpu_torch.ops import packed as packedmod
 from mini_parallel_tpu_torch.ops.kmer import EMPTY_ARRAYS, merge_sorted_arrays
+from mini_parallel_tpu_torch.parallel.mesh import mesh_device
 from mini_parallel_tpu_torch.utils.config import Config
 
 WRITE_BLOCK = 1 << 20  # k-mers formatted and written at a time
@@ -161,6 +166,19 @@ def count_lines(keys: np.ndarray, counts: np.ndarray, k: int) -> bytes:
     return out.tobytes()
 
 
+def summarize_counts(keys: np.ndarray, counts: np.ndarray, top_n: int,
+                     hist_bins: int = 64) -> tuple[np.ndarray, list]:
+    """The summary of a host table, as DeviceKmerAccumulator.summary gives
+    it: the multiplicity histogram (the last bin holds every count >=
+    ``hist_bins``) and the top-N (key, count) pairs, by count descending,
+    ties by ascending key."""
+    hist = np.bincount(np.minimum(counts, hist_bins),
+                       minlength=hist_bins + 1)[1:hist_bins + 1]
+    top = np.lexsort((keys, -counts))[:top_n]
+    return (hist.astype(np.int64),
+            list(zip(keys[top].tolist(), counts[top].tolist())))
+
+
 def save_kmer_checkpoint(path: str, arrays: tuple, meta: dict) -> None:
     """Atomic .npz snapshot of the counts so far and the resume metadata,
     in the JAX package's layout: keys as (hi, lo) int32 words of
@@ -192,14 +210,12 @@ class KmerEngine:
                  device_capacity: int | None = None,
                  device: torch.device | str | None = None):
         self.cfg = cfg or Config(chunk_size_reads=10_000)
-        if mesh is not None or self.cfg.mesh_shape:
-            raise NotImplementedError(
-                "device meshes (MPT_MESH_SHAPE) are not yet ported")
         self.k = k
         self.canonical = canonical
         self.device_accumulate = device_accumulate
         self.device_capacity = device_capacity
-        self.device = require_cuda(device)
+        self.mesh = mesh
+        self.device = require_cuda(mesh_device(mesh, device))
 
     def make_store(self):
         """The native hash store when its library builds, else a dict."""
@@ -235,13 +251,23 @@ class KmerEngine:
         return self._count_arr_batch(arr, lens, pad, agg)
 
     def _count_arr_batch(self, arr, lens, pad, agg) -> tuple[int, int]:
-        keys, counts, _ = self._count_device(arr, lens, pad)
-        keys, counts = keys.cpu().numpy(), counts.cpu().numpy()
-        if isinstance(agg, dict):
-            kmer.merge_device_counts(agg, keys, counts)
+        if (self.mesh is not None and self.cfg.packed_transfer
+                and pad % 4 == 0):
+            parts = [kmer.unique_counts_packed(*args, k=self.k,
+                                               canonical=self.canonical)
+                     for args in packedmod.put_sharded(
+                         packedmod.pack_batch(arr, lens), self.mesh)]
         else:
-            agg.merge(keys, counts)
-        return int(counts.sum()), arr.shape[0]
+            parts = [self._count_device(arr, lens, pad)]
+        total = 0
+        for keys, counts, _ in parts:  # each shard's distinct keys
+            keys, counts = keys.cpu().numpy(), counts.cpu().numpy()
+            if isinstance(agg, dict):
+                kmer.merge_device_counts(agg, keys, counts)
+            else:
+                agg.merge(keys, counts)
+            total += int(counts.sum())
+        return total, arr.shape[0]
 
     def _checkpoint_meta(self, path: str, res: KmerResult,
                          chunks_done: int) -> dict:
@@ -353,7 +379,9 @@ class KmerEngine:
         ``result_mode="summary"`` computes the distinct count, histogram
         and top-N on the device and never drains the table (``arrays``
         stays empty); it takes the full drain wherever exactness needs the
-        host (a spill, a resumed base)."""
+        host (a spill, a resumed base). On the host-store path (a mesh, or
+        ``device_accumulate=False``) the summary is that of the merged
+        store, and ``arrays`` stays empty too."""
         if result_mode not in ("full", "summary"):
             raise ValueError(f"unknown result_mode {result_mode!r}")
         paths = fastq.as_paths(path)
@@ -362,7 +390,8 @@ class KmerEngine:
         t0 = time.perf_counter()
         base, start_chunk = self._load_resume(checkpoint_path, res,
                                               file_path=joined)
-        if self.device_accumulate and self.cfg.packed_transfer:
+        if (self.device_accumulate and self.cfg.packed_transfer
+                and self.mesh is None):
             self._count_file_device(
                 paths, res, progress, start_chunk, base, checkpoint_path,
                 checkpoint_every, result_mode, summary_top_n)
@@ -390,7 +419,11 @@ class KmerEngine:
                         checkpoint_path, base,
                         self._checkpoint_meta(joined, res, idx + 1))
         keys, counts = merge_sorted_arrays(base, self._agg_arrays(agg))
-        res.arrays = (keys, counts)
         res.distinct_kmers = int(keys.size)
+        if result_mode == "summary":
+            res.count_histogram, res.top_items = summarize_counts(
+                keys, counts, summary_top_n)
+        else:
+            res.arrays = (keys, counts)
         res.seconds = time.perf_counter() - t0
         return res

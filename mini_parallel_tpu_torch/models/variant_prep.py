@@ -1,5 +1,5 @@
 """Variant-call prep: seed mapping, device pileup, candidate extraction.
-The counterpart of mini_parallel_tpu/models/variant_prep.py on one device.
+The counterpart of mini_parallel_tpu/models/variant_prep.py.
 
 - **seed mapping**: each read is anchored by looking up seed 15-mers
   (30-bit keys in int32) at staggered offsets in a sorted index of the
@@ -31,7 +31,17 @@ The counterpart of mini_parallel_tpu/models/variant_prep.py on one device.
   traceback.
 
 Mapped counts stay on the device and are read once per checkpoint and once
-at the end. Device meshes are not ported yet.
+at the end.
+
+With a device mesh (``mesh=``), packed batches shard data-parallel: each
+shard runs the same fused batch step (seed mapping, the rescue sweep, the
+traceback) on its rows and device against a zero pileup, and one merge
+adds the shards' pileups and mapped counts into the accumulator
+(scatter-adds commute, so the result equals the single-device one); the
+first shard adds into the accumulator itself. Without a mesh the same path
+runs on a mesh of one shard, the engine's device. The SAM path runs on the
+mesh's first device, as in the JAX package; ``genotype_candidates`` shards
+its Pair-HMM lanes.
 """
 
 from __future__ import annotations
@@ -54,6 +64,12 @@ from mini_parallel_tpu_torch.ops.sw_cuda import sw_vs_ref_batch_best
 from mini_parallel_tpu_torch.ops.sw_traceback import (
     sw_affine_positions_batch_best,
     sw_positions_batch_best,
+)
+from mini_parallel_tpu_torch.parallel import collectives
+from mini_parallel_tpu_torch.parallel.mesh import (
+    engine_mesh,
+    mesh_device,
+    shard_batch,
 )
 from mini_parallel_tpu_torch.utils.config import Config
 
@@ -517,7 +533,7 @@ def _gapped_map_step(pk, ec, ev, lens, sorted_keys, sorted_pos, ref_ascii,
 
 class VariantPrepEngine:
     """Variant-call prep with ungapped (fast) or gapped (traceback) pileup
-    on one device.
+    on one device, or on the data shards of a device mesh.
 
     gapped=True aligns each mapped read against its anchored reference
     window with traceback, so reads containing indels still pile up their
@@ -538,14 +554,13 @@ class VariantPrepEngine:
         gap_model: str = "linear",
         contig_spacer: int = CONTIG_SPACER_N,
         device: torch.device | str | None = None,
+        mesh=None,
     ):
         self.cfg = cfg or Config(chunk_size_reads=10_000)
-        if self.cfg.mesh_shape:
-            raise NotImplementedError(
-                "device meshes (MPT_MESH_SHAPE) are not yet ported")
         if gap_model not in ("linear", "affine"):
             raise ValueError(f"unknown gap_model {gap_model!r}")
-        self.device = require_cuda(device)
+        self.device = require_cuda(mesh_device(mesh, device))
+        self.mesh = engine_mesh(mesh, self.device)
         if isinstance(reference, dict):
             concat, names, offs, lens = concat_contigs(reference,
                                                        spacer=contig_spacer)
@@ -558,6 +573,8 @@ class VariantPrepEngine:
             self.contig_offsets = np.asarray([0])
             self.contig_lengths = np.asarray([len(reference)])
         self.index = ReferenceIndex(reference, self.device)
+        # the index's device tensors on each shard device of the mesh
+        self._shard_index: dict = {}
         self.min_depth = min_depth
         self.alt_fraction = alt_fraction
         self.gapped = gapped
@@ -629,26 +646,65 @@ class VariantPrepEngine:
         arr, lens, pad = self._prep_batch_flat(flat, offs)
         return self._process_prepped(arr, lens, pad, pileup_acc, None)
 
+    def _index_on(self, dev: torch.device) -> tuple[torch.Tensor, ...]:
+        """(sorted_keys, sorted_pos, ref_ascii) on ``dev``, copied once."""
+        if dev not in self._shard_index:
+            idx = self.index
+            self._shard_index[dev] = tuple(
+                t.to(dev) for t in (idx.sorted_keys, idx.sorted_pos,
+                                    idx.ref_ascii_dev))
+        return self._shard_index[dev]
+
+    def _batch_step(self, pk, ec, ev, lens, qb, index, pileup_acc, G: int,
+                    pad: int):
+        """The fused packed batch step (gapped or ungapped) on the
+        operands' device: -> (pileup_acc, mapped count)."""
+        if self.gapped:
+            return _gapped_batch_step(
+                pk, ec, ev, lens, qb, *index, pileup_acc, G,
+                pad + 2 * self.window_margin, self.window_margin,
+                rescue=self.rescue, rescue_min_frac=self.rescue_min_frac,
+                gap_model=self.gap_model, gap_open=self.cfg.gap_open,
+                gap_extend=self.cfg.gap_extend)
+        return _ungapped_batch_step(
+            pk, ec, ev, lens, qb, *index, pileup_acc, G, rescue=self.rescue,
+            rescue_min_frac=self.rescue_min_frac)
+
+    def _process_batch_sharded(self, pb, qmask, pileup_acc, pad: int,
+                               G: int):
+        """Each shard runs the batch step on its rows, the first into
+        ``pileup_acc`` (in place), every other against a zero pileup on
+        its device; those pileups merge into ``pileup_acc`` and the mapped
+        counts into one deferred device scalar."""
+        shards = packedmod.put_sharded(pb, self.mesh)
+        if qmask is None:
+            qbs = [None] * len(shards)
+        else:
+            rows = sum(s[0].shape[0] for s in shards)
+            qmask = np.concatenate(
+                [qmask, np.ones((rows - qmask.shape[0], pad), bool)])
+            qbs = [q for (q,) in shard_batch(
+                self.mesh, (packedmod.pack_bits(qmask),))]
+        piles, counts = [], []
+        for i, (args, qb) in enumerate(zip(shards, qbs)):
+            dev = args[0].device
+            pile, n = self._batch_step(
+                *args, qb, self._index_on(dev),
+                pileup_acc if i == 0 else _new_pileup(G, dev), G, pad)
+            piles.append(pile)
+            counts.append(n)
+        if len(piles) > 1:
+            pileup_acc += collectives.merge_scores(piles[1:]).to(
+                pileup_acc.device)
+        return pileup_acc, collectives.merge_scores(counts)
+
     def _process_prepped(self, arr, lens, pad, pileup_acc, qmask):
         G = len(self.index.ref_codes)
         idx = self.index
         dev = self.device
         if self.cfg.packed_transfer and pad % 4 == 0:
-            pb = packedmod.pack_batch(arr, lens)
-            qb = (torch.from_numpy(packedmod.pack_bits(qmask)).to(dev)
-                  if qmask is not None else None)
-            if self.gapped:
-                return _gapped_batch_step(
-                    *packedmod.device_args(pb, dev), qb, idx.sorted_keys,
-                    idx.sorted_pos, idx.ref_ascii_dev, pileup_acc, G,
-                    pad + 2 * self.window_margin, self.window_margin,
-                    rescue=self.rescue, rescue_min_frac=self.rescue_min_frac,
-                    gap_model=self.gap_model, gap_open=self.cfg.gap_open,
-                    gap_extend=self.cfg.gap_extend)
-            return _ungapped_batch_step(
-                *packedmod.device_args(pb, dev), qb, idx.sorted_keys,
-                idx.sorted_pos, idx.ref_ascii_dev, pileup_acc, G,
-                rescue=self.rescue, rescue_min_frac=self.rescue_min_frac)
+            return self._process_batch_sharded(
+                packedmod.pack_batch(arr, lens), qmask, pileup_acc, pad, G)
         codes = encode.ascii_to_code(torch.from_numpy(arr).to(dev))
         lens_t = torch.from_numpy(np.asarray(lens, np.int32)).to(dev)
         final_codes, final_starts, final_mapped, flipped = _map_codes_batch(
@@ -892,7 +948,7 @@ class VariantPrepEngine:
         if lanes is None:
             return res
         live, operands = lanes
-        lls, n_f64 = pairhmm_log10_padded(*operands)
+        lls, n_f64 = pairhmm_log10_padded(*operands, mesh=self.mesh)
         if progress:
             progress(f"  genotyping: {lls.numel()} Pair-HMM lanes, {n_f64} "
                      "recomputed in float64")

@@ -27,6 +27,11 @@ P(read|hap) = Σ_j M[m,j] + I[m,j].
 - :func:`pairhmm_log10_padded` is the engine's batch: float32 first, then
   the float64 forward on the lanes that underflowed, gathered on the device.
   :func:`pairhmm_log10_batch` is the JAX package's host API over it.
+- :func:`make_pairhmm_sharded` splits a batch's lanes over the data axis
+  of a device mesh, each shard's lanes through the same forward on its
+  device; likelihoods are per lane, so nothing merges but the gather.
+  Both batch APIs take ``mesh=`` (the float64 recompute is sharded too);
+  without one they run on a mesh of one shard, the operands' device.
 
 A float32 lane counts as underflowed when its scaled total is below the
 smallest normal float32 (FLT_MIN): its log10 then never rests on a
@@ -42,6 +47,13 @@ import torch
 
 from mini_parallel_tpu_torch.device import require_cuda
 from mini_parallel_tpu_torch.ops import encode
+from mini_parallel_tpu_torch.parallel import collectives
+from mini_parallel_tpu_torch.parallel.mesh import (
+    engine_mesh,
+    mesh_device,
+    pad_to_shards,
+    shard_batch,
+)
 
 DEFAULT_GAP_OPEN_PHRED = 45.0
 DEFAULT_GAP_EXT_PHRED = 10.0
@@ -216,12 +228,49 @@ def pairhmm_batch_best(reads: torch.Tensor, err: torch.Tensor,
                   gap_ext_phred)
 
 
+def make_pairhmm_sharded(mesh, data_axis: str | None = None,
+                         gap_open_phred: float = DEFAULT_GAP_OPEN_PHRED,
+                         gap_ext_phred: float = DEFAULT_GAP_EXT_PHRED):
+    """The sharded forward: fn(reads, err, haps, read_lens, hap_lens) ->
+    (B,) log10 likelihoods in ``err``'s dtype, on the mesh's first device.
+    The lanes split into contiguous blocks over ``data_axis`` (default:
+    the mesh's first axis), each run by :func:`pairhmm_batch_best` on its
+    shard's device. B must divide by the shard count."""
+
+    def fn(reads, err, haps, read_lens, hap_lens) -> torch.Tensor:
+        return collectives.concat_rows([
+            pairhmm_batch_best(*shard, gap_open_phred, gap_ext_phred)
+            for shard in shard_batch(mesh, (reads, err, haps, read_lens,
+                                            hap_lens), data_axis)])
+
+    return fn
+
+
+def _forward(reads, err, haps, read_lens, hap_lens, gaps: tuple,
+             mesh) -> torch.Tensor:
+    """The sharded forward on ``mesh``, the lanes padded by empty ones to
+    a multiple of the shard count (an empty lane is -inf; the pads are cut
+    off)."""
+    B = reads.shape[0]
+    n = len(mesh.axis_devices())
+    extra = pad_to_shards(max(B, 1), n) - B
+
+    def pad(x: torch.Tensor, value) -> torch.Tensor:
+        if not extra:
+            return x
+        return torch.cat([x, x.new_full((extra, *x.shape[1:]), value)])
+
+    return make_pairhmm_sharded(mesh, None, *gaps)(
+        pad(reads, int(encode.PAD_A)), pad(err, 0),
+        pad(haps, int(encode.PAD_B)), pad(read_lens, 0), pad(hap_lens, 0))[:B]
+
+
 def pairhmm_log10_padded(reads: torch.Tensor, err64: torch.Tensor,
                          haps: torch.Tensor, read_lens: torch.Tensor,
                          hap_lens: torch.Tensor,
                          gap_open_phred: float = DEFAULT_GAP_OPEN_PHRED,
-                         gap_ext_phred: float = DEFAULT_GAP_EXT_PHRED
-                         ) -> tuple[torch.Tensor, int]:
+                         gap_ext_phred: float = DEFAULT_GAP_EXT_PHRED,
+                         mesh=None) -> tuple[torch.Tensor, int]:
     """(B,) float64 log10 P(read | hap) of a padded batch on its device, and
     the number of lanes recomputed in float64.
 
@@ -229,16 +278,21 @@ def pairhmm_log10_padded(reads: torch.Tensor, err64: torch.Tensor,
     read). The float32 forward runs on ``err64`` rounded to float32; the
     lanes it leaves at -inf that have a read and a haplotype are gathered
     on the device and recomputed by the float64 forward, which is exact at
-    any quality (the JAX package recomputes them with the Python oracle)."""
+    any quality (the JAX package recomputes them with the Python oracle).
+    Both passes shard their lanes over the data axis of ``mesh`` (None: a
+    mesh of one shard, the operands' device; :func:`make_pairhmm_sharded`)
+    and the result is on its first device."""
     gaps = (gap_open_phred, gap_ext_phred)
-    ll = pairhmm_batch_best(reads, err64.to(torch.float32), haps, read_lens,
-                            hap_lens, *gaps).to(torch.float64)
-    redo = torch.nonzero(torch.isinf(ll) & (read_lens > 0)
-                         & (hap_lens > 0))[:, 0]
+    mesh = engine_mesh(mesh, reads.device)
+    ll = _forward(reads, err64.to(torch.float32), haps, read_lens, hap_lens,
+                  gaps, mesh).to(torch.float64)
+    redo = torch.nonzero(torch.isinf(ll) & (read_lens.to(ll.device) > 0)
+                         & (hap_lens.to(ll.device) > 0))[:, 0]
     n = int(redo.numel())
     if n:
-        ll[redo] = pairhmm_batch_best(reads[redo], err64[redo], haps[redo],
-                                      read_lens[redo], hap_lens[redo], *gaps)
+        ll[redo] = _forward(*(x[redo.to(x.device)] for x in (
+            reads, err64, haps, read_lens, hap_lens)), gaps, mesh).to(
+                ll.device)
     return ll, n
 
 
@@ -250,17 +304,18 @@ def phred_error(phreds: torch.Tensor) -> torch.Tensor:
 def pairhmm_log10_batch(reads: list[bytes], quals: list, haps: list[bytes],
                         gap_open_phred: float = DEFAULT_GAP_OPEN_PHRED,
                         gap_ext_phred: float = DEFAULT_GAP_EXT_PHRED,
-                        device: torch.device | str | None = None
-                        ) -> np.ndarray:
+                        device: torch.device | str | None = None,
+                        mesh=None) -> np.ndarray:
     """Host-facing batch API, the JAX package's contract: ``quals`` are
     Phred+33 ASCII bytes or numeric Phred arrays, one per read; an empty
     batch gives an empty array; the per-base error is computed in float64
     and the float32 forward sees it rounded. Lanes that underflow float32
     are recomputed in float64 (:func:`pairhmm_log10_padded`). Runs on the
-    card unless ``device`` is the CPU."""
+    card unless ``device`` is the CPU; with ``mesh``, on the mesh's data
+    shards."""
     if not reads:
         return np.empty(0, np.float64)
-    dev = require_cuda(device)
+    dev = require_cuda(mesh_device(mesh, device))
     arr_r, la = encode.pad_batch(reads, pad_value=int(encode.PAD_A))
     arr_h, lb = encode.pad_batch(haps, pad_value=int(encode.PAD_B))
     phred = np.zeros(arr_r.shape, np.float64)
@@ -276,5 +331,6 @@ def pairhmm_log10_batch(reads: list[bytes], quals: list, haps: list[bytes],
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
     ll, _ = pairhmm_log10_padded(put(arr_r), err.to(dev), put(arr_h), put(la),
-                                 put(lb), gap_open_phred, gap_ext_phred)
+                                 put(lb), gap_open_phred, gap_ext_phred,
+                                 mesh=mesh)
     return ll.cpu().numpy()

@@ -254,13 +254,12 @@ def _group_operands(rng, M, Wtot, device):
     return [torch.from_numpy(x).to(device) for x in (a, b, lh, lf)]
 
 
-@pytest.mark.parametrize("case", ["second wave", "M not a chunk multiple",
-                                  "M below one chunk", "one strip",
-                                  "ragged last strip", "multi-warp strips"])
-def test_strip_group_kernel_matches_plain_group(cuda_device, case):
-    """The strip-group kernel == the plain group (sw_strip_group /
-    sw_affine_strip_group) on best and the carried-out column(s), from
-    random carried-in columns."""
+GROUP_CASES = ["second wave", "M not a chunk multiple", "M below one chunk",
+               "one strip", "ragged last strip", "multi-warp strips"]
+
+
+def _group_shape(case, device):
+    """(M, W, Wtot) of a strip-group case."""
     M, W, Wtot = {"M not a chunk multiple": (1000, 64, 64 * 20),
                   "M below one chunk": (7, 32, 32 * 9),
                   "one strip": (3000, 512, 512),
@@ -268,8 +267,17 @@ def test_strip_group_kernel_matches_plain_group(cuda_device, case):
                   "multi-warp strips": (500, 2048, 2048 * 3 + 1024),
                   "second wave": (45, 16, 0)}[case]
     if case == "second wave":  # more strips than the card holds blocks
-        Wtot = 16 * (max(sw_long.resident_blocks(16, False, cuda_device),
-                         sw_long.resident_blocks(16, True, cuda_device)) + 37)
+        Wtot = 16 * (max(sw_long.resident_blocks(16, False, device),
+                         sw_long.resident_blocks(16, True, device)) + 37)
+    return M, W, Wtot
+
+
+@pytest.mark.parametrize("case", GROUP_CASES)
+def test_strip_group_kernel_matches_plain_group(cuda_device, case):
+    """The strip-group kernel == the plain group (sw_strip_group /
+    sw_affine_strip_group) on best and the carried-out column(s), from
+    random carried-in columns."""
+    M, W, Wtot = _group_shape(case, cuda_device)
     rng = np.random.default_rng(M + W + Wtot)
     a, b, lh, lf = _group_operands(rng, M, Wtot, cuda_device)
     cpu = [t.cpu() for t in (a, b, lh, lf)]
@@ -286,6 +294,78 @@ def test_strip_group_kernel_matches_plain_group(cuda_device, case):
         assert kernel.launches == n0 + 1
         assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), \
             (case, affine)
+
+
+@pytest.mark.parametrize("case", GROUP_CASES)
+def test_strip_group_kernel_band_rows_match_plain_group(cuda_device, case):
+    """The band contract of csrc/sw_long.cu: from random carried-in
+    columns and a random row above (top_h with its corner, and top_e), the
+    kernel == the plain group on best, the carried-out column(s) and the
+    bottom row(s), exactly; and the true edge given as explicit rows
+    (zeros, NEG) == the null top, bit for bit."""
+    M, W, Wtot = _group_shape(case, cuda_device)
+    rng = np.random.default_rng(M + W + Wtot + 1)
+    a, b, lh, lf = _group_operands(rng, M, Wtot, cuda_device)
+    th = torch.from_numpy(rng.integers(0, 60, Wtot + 1).astype(np.int32))
+    te = torch.from_numpy(rng.integers(-70, 50, Wtot).astype(np.int32))
+    cpu = [t.cpu() for t in (a, b, lh, lf)]
+    for affine in (False, True):
+        kernel = (sw_long.sw_affine_strip_cuda if affine
+                  else sw_long.sw_strip_cuda)
+        n0 = kernel.launches
+        if affine:
+            tops = dict(top_h=th, top_e=te)
+            got = kernel(a, b, lh, lf, -3, -1, strip_width=W,
+                         **{k: v.to(cuda_device) for k, v in tops.items()})
+            want = sw_long.sw_affine_strip_group(*cpu, -3, -1, strip_width=W,
+                                                 **tops)
+            edge = kernel(a, b, lh, lf, -3, -1, strip_width=W)
+            top_h, top_e = sw_long.default_top(Wtot, True, cuda_device)
+            edge_rows = kernel(a, b, lh, lf, -3, -1, strip_width=W,
+                               top_h=top_h, top_e=top_e)
+        else:
+            got = kernel(a, b, lh, strip_width=W, top_h=th.to(cuda_device))
+            want = sw_long.sw_strip_group(*cpu[:3], strip_width=W, top_h=th)
+            edge = kernel(a, b, lh, strip_width=W)
+            (top_h,) = sw_long.default_top(Wtot, False, cuda_device)
+            edge_rows = kernel(a, b, lh, strip_width=W, top_h=top_h)
+        torch.cuda.synchronize()
+        assert kernel.launches == n0 + 3
+        assert len(got) == len(want) == len(edge) + 1 + affine
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), \
+            (case, affine)
+        assert all(torch.equal(e, r) for e, r in zip(edge, edge_rows)), \
+            (case, affine)
+
+
+def test_long_pair_bands_on_the_card(cuda_device):
+    """The banded host loop on a seq mesh of 1, 2, 3 and 4 shards of the
+    one card == the one-device host loop == the goldens, a match run
+    crossing every band and strip boundary; every band launches the
+    kernel."""
+    from mini_parallel_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(10)
+    a = rng.choice(np.frombuffer(b"ACGT", np.uint8), 2500)
+    b = rng.choice(np.frombuffer(b"ACGT", np.uint8), 3000)
+    b[800:2600] = a[300:2100]
+    b[1500:1503] = ord("A")
+    lin, aff = (sw_long.sw_score_numpy_blocked(a, b),
+                sw_long.sw_affine_numpy_blocked(a, b))
+    for C in (1, 2, 3, 4):
+        mesh = make_mesh((1, C), devices=[cuda_device] * C)
+        for width, per_group in ((64, 5), (512, None)):
+            n0 = sw_long.sw_strip_cuda.launches
+            assert sw_long.sw_score_long_sharded(
+                a, b, mesh, strip_width=width,
+                strips_per_group=per_group) == lin
+            strips = -(-3008 // width)
+            assert sw_long.sw_strip_cuda.launches - n0 == \
+                C * -(-strips // (per_group or strips))
+            assert sw_long.sw_affine_score_long_sharded(
+                a, b, mesh, strip_width=width,
+                strips_per_group=per_group) == aff
+    assert sw_long.sw_score_long(a, b, cuda_device) == lin
 
 
 def test_long_host_loop_in_groups_on_the_card(cuda_device):

@@ -498,10 +498,18 @@ def test_checkpoint_refusals_match_jax(lane, tmp_path, rng):
 
 
 def test_engine_refuses_meshes_and_needs_a_device():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        km.KmerEngine(Config(chunk_size_reads=5, mesh_shape=(2,)), device=CPU)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        km.KmerEngine(mesh=object(), device=CPU)
+    """Meshes are ported: the engine takes MPT_MESH_SHAPE's config (the
+    CLI builds the mesh, as the JAX CLI does) and a mesh, whose first
+    device it runs on; it refuses a device that is not that one."""
+    from mini_parallel_tpu_torch.parallel.mesh import make_mesh
+
+    assert km.KmerEngine(Config(chunk_size_reads=5, mesh_shape=(2,)),
+                         device=CPU).mesh is None
+    mesh = make_mesh((2,), devices=[CPU] * 2)
+    assert km.KmerEngine(mesh=mesh).device == CPU
+    assert km.KmerEngine(mesh=mesh, device=CPU).mesh is mesh
+    with pytest.raises(ValueError, match="first device"):
+        km.KmerEngine(mesh=mesh, device="meta")
     if not torch.cuda.is_available():
         from mini_parallel_tpu_torch.device import NoAcceleratorError
 

@@ -6,9 +6,11 @@ import copy
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -246,18 +248,32 @@ def test_cli_full_wgs_sw_allow_cpu(tmp_path, rng, monkeypatch):
     [],
 ])
 def test_cli_not_yet_ported_exits_2(argv, monkeypatch, tmp_path):
-    """--profile is ported; device meshes are what every mode still
-    refuses: each argv under MPT_MESH_SHAPE exits 2 "not yet ported", and
-    its --profile trace of the refused run is still written."""
-    monkeypatch.chdir(tmp_path)
+    """Nothing is refused as not ported any more: each argv (their inputs
+    missing) exits, or raises, under MPT_MESH_SHAPE=2 as it does without a
+    mesh, with the same lines, and writes its --profile trace either
+    way."""
     monkeypatch.setenv("GPU_CHUNK_SIZE_READS", "10")
-    monkeypatch.setenv("MPT_MESH_SHAPE", "2")
-    out = []
-    assert cli.main(argv + ["--allow-cpu"] if argv else argv,
-                    echo=out.append) == 2
-    assert argv == [] or any("not yet ported" in ln for ln in out)
-    if argv:
-        (trace,) = os.listdir(tmp_path / "p")
+    runs = []
+    for shape in ("", "2"):
+        monkeypatch.setenv("MPT_MESH_SHAPE", shape)
+        (tmp_path / f"mesh{shape}").mkdir()
+        monkeypatch.chdir(tmp_path / f"mesh{shape}")
+        out = []
+        try:
+            rc = cli.main(argv + ["--allow-cpu"] if argv else argv,
+                          echo=out.append)
+        except RuntimeError as e:  # --full-wgs aborts on a missing file
+            rc = str(e)
+        # an earlier test's .env may have named real lanes: mask times
+        runs.append((rc, [re.sub(r"\d+\.\d+ (s|ms)", "#", ln) for ln in out
+                          if not ln.startswith(
+                              ("Profile trace written", "Device:",
+                               "Monitor summary", "Throughput:",
+                               "Host blocked"))]))
+    assert runs[0] == runs[1]
+    assert not any("not yet ported" in ln for ln in runs[1][1])
+    for shape in ("", "2") if argv else ():
+        (trace,) = os.listdir(tmp_path / f"mesh{shape}" / "p")
         assert trace.endswith(".pt.trace.json")
 
 
@@ -275,18 +291,28 @@ def test_cli_and_engine_require_cuda():
 
 
 def test_engine_not_yet_ported_paths(cfg, monkeypatch):
-    """Device meshes are the one engine path still to port: every mode
-    refuses them, on the engine and through the CLI."""
+    """No engine path is left to port: every mode takes MPT_MESH_SHAPE's
+    config and a mesh, scoring as without one; the CLI runs its files
+    under the mesh (missing here: ERROR, exit 1, as without a mesh)."""
+    from mini_parallel_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((2,), devices=[CPU] * 2)
+    reads = [random_dna(np.random.default_rng(3), n) for n in (5, 40, 77)]
     for mode in alignment.MODES:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            AlignmentEngine(dataclasses.replace(cfg, mesh_shape=(2,)),
-                            mode=mode, device=CPU)
+        # the config's shape is the CLI's to build: the engine holds one shard
+        assert AlignmentEngine(dataclasses.replace(cfg, mesh_shape=(2,)),
+                               mode=mode, device=CPU).mesh.devices.size == 1
+        want = AlignmentEngine(cfg, mode=mode, device=CPU).score_read_batch(
+            reads, reads[::-1])
+        got = AlignmentEngine(cfg, mode=mode, mesh=mesh).score_read_batch(
+            reads, reads[::-1])
+        assert (got == want).all()
     monkeypatch.setenv("GPU_CHUNK_SIZE_READS", "10")
     monkeypatch.setenv("MPT_MESH_SHAPE", "2")
     out = []
     assert cli.main(["--files", "-1", "a", "-2", "b", "--allow-cpu"],
-                    echo=out.append) == 2
-    assert "not yet ported" in out[-1]
+                    echo=out.append) == 1
+    assert out[-1].startswith("ERROR:")
     eng = AlignmentEngine(cfg, mode="sw", device=CPU)
     assert eng.score_strings("A" * 2048, "A" * 2048) == 4096
     assert eng.score_strings("A" * 2049, "A") == 2  # the strip engine

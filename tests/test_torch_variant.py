@@ -303,9 +303,10 @@ def test_engine_helpers_match_jax(sample):
             jeng._qual_mask([b"ACGT", b"", b"A" * 9], quals, pad))
     with pytest.raises(ValueError, match="gap_model"):
         vp.VariantPrepEngine(b"ACGT" * 10, cfg, device=CPU, gap_model="x")
-    with pytest.raises(NotImplementedError, match="MPT_MESH_SHAPE"):
-        vp.VariantPrepEngine(b"ACGT" * 10, Config(mesh_shape=(2,)),
-                             device=CPU)
+    # MPT_MESH_SHAPE is the CLI's to turn into a mesh, as in the JAX
+    # package: the engine holds a mesh of one shard
+    assert vp.VariantPrepEngine(b"ACGT" * 10, Config(mesh_shape=(2,)),
+                                device=CPU).mesh.devices.size == 1
 
 
 # ----------------------------------------------------------------------
@@ -537,22 +538,22 @@ def test_cli_variant_prep_errors_match_jax(sample, monkeypatch, tmp_path):
 
 
 def test_cli_genotype_not_yet_ported(sample, monkeypatch, tmp_path):
-    """--genotype itself is ported (tests/test_torch_genotype.py), and so
-    is --profile; what it may still be combined with and the port does not
-    run yet refuses: device meshes, with or without a profiler trace."""
+    """Nothing --genotype combines with is left unported: under a mesh of
+    8 CPU shards (MPT_MESH_SHAPE=8) the run prints the lines the port
+    prints without a mesh, the genotyping line's lane counts included (the
+    JAX CLI's mesh runs are compared in tests/test_torch_parallel.py)."""
     monkeypatch.chdir(tmp_path)
-    monkeypatch.setenv("MPT_MESH_SHAPE", "2")
-    out = []
-    assert cli.main(["--variant-prep", sample["lanes"][0], "--reference",
-                     sample["ref"], "--genotype", "--profile", "p",
-                     "--allow-cpu"], echo=out.append) == 2
-    assert "MPT_MESH_SHAPE" in out[-2] and "not yet ported" in out[-2]
-    assert out[-1].startswith("Profile trace written to p/")
-    out = []
-    assert cli.main(["--variant-prep", sample["lanes"][0], "--reference",
-                     sample["ref"], "--genotype", "--allow-cpu"],
-                    echo=out.append) == 2
-    assert "MPT_MESH_SHAPE" in out[-1]
+    argv = ["--variant-prep", sample["lanes"][0], "--reference",
+            sample["ref"], "--gapped", "--genotype", "--allow-cpu"]
+    runs = []
+    for shape in ("", "8"):
+        monkeypatch.setenv("MPT_MESH_SHAPE", shape)
+        out = []
+        assert cli.main(argv, echo=out.append) == 0
+        runs.append([ln for ln in out if not ln.startswith(_VARIABLE)])
+    assert runs[0] == runs[1]
+    assert sum(" GT=" in ln for ln in runs[0]) >= 3
+    assert not any("not yet ported" in ln for ln in runs[1])
 
 
 def test_variant_paths_leave_kernel_counters_untouched(sample, monkeypatch):
