@@ -152,6 +152,15 @@ Phases, one line or more each; any failure raises and exits non-zero:
     processes over gloo on the one card (JAX_COORDINATOR_ADDRESS): both
     ranks' merged totals == the single process's, the files split. Every
     path's kernels must have launched.
+23. The measurement harness, each module a subprocess on the card:
+    ``bench.headline`` at full size (10,000 x 150 bp; its batch ms within
+    20% of phase 3's sw_score median, printed side by side),
+    ``bench.workloads`` at its defaults (100,000 reads, a 100 kb
+    reference; bench_workloads.py's ten rows in its order),
+    ``bench.scaling`` at 1, 2 and 4 shards of cuda:0 (every size == one
+    shard) and ``bench.multiprocess`` at 1 and 2 processes (identical
+    merged totals). Every row must be correct and carry the card's name
+    and power limit; the phase must take under 150 s.
 
 Then one JSON line of kernel results (each with its bound: see
 tools/roofline.py), the nvidia-smi line, and last
@@ -2977,6 +2986,110 @@ def phase_parallel(rng, tmp: str, fx: dict, main_pairs, total_bases: int,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the measurement harness (mini_parallel_tpu_torch/bench/)
+# ---------------------------------------------------------------------------
+
+BENCH_RUNS = (  # (module, arguments, time limit s)
+    ("headline", [], 300),
+    ("workloads", [], 600),
+    ("scaling", ["--sizes", "1,2,4"], 300),
+    ("multiprocess", ["--sizes", "1,2"], 600),
+)
+BENCH_PHASE_LIMIT_S = 150
+HEADLINE_TOLERANCE = 0.2  # the headline's batch ms against phase 3's
+
+
+def bench_rows(module: str, argv: list[str], limit: float) -> list[dict]:
+    """One bench module as a subprocess on the card, from the repo root:
+    its JSON lines. It must exit 0."""
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"mini_parallel_tpu_torch.bench.{module}",
+         *argv], cwd=root, capture_output=True, text=True, timeout=limit)
+    rows = [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith("{")]
+    print(f"[23 {module}] {' '.join(argv) or 'defaults'}: exit "
+          f"{proc.returncode}, {len(rows)} rows, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    check(proc.returncode == 0,
+          f"bench.{module} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    return rows
+
+
+def phase_bench(info: dict, sw_kernel_ms: float) -> dict:
+    """The four bench modules at their card sizes: every row correct and
+    carrying the card's name and power limit; the headline's batch within
+    HEADLINE_TOLERANCE of phase 3's sw_score median; the battery's ten rows
+    in bench_workloads.py's order; scaling exact at 1, 2 and 4 shards of
+    cuda:0; the N-process totals identical at N = 1 and 2."""
+    from mini_parallel_tpu_torch.bench.workloads import ROWS
+
+    t_phase = time.perf_counter()
+    out = {name: bench_rows(name, argv, limit)
+           for name, argv, limit in BENCH_RUNS}
+    for name, rows in out.items():
+        for row in rows:
+            card = row.get("device") or {}
+            check(row.get("correct") is True,
+                  f"bench.{name} row {row.get('metric')} is not correct")
+            check(card.get("nvidia_smi") == info["nvidia_smi"]
+                  and card.get("power_limit_w") is not None,
+                  f"bench.{name} row {row.get('metric')} has card fields "
+                  f"{card}, not {info['nvidia_smi']!r}")
+
+    (head,) = out["headline"]
+    ms = head["extra"]["batch_latency_ms"]
+    print(f"[23 headline] {head['metric']}: {head['value']:.1f} GCUPS, "
+          f"{ms:.4f} ms (min {head['extra']['min_ms']:.4f}, max "
+          f"{head['extra']['max_ms']:.4f}) beside phase 3's sw_score "
+          f"{sw_kernel_ms:.4f} ms; bound {head['bound_ms']:.4f} ms, share "
+          f"{head['bound_share']:.3f}; vs_baseline {head['vs_baseline']:.1f}",
+          flush=True)
+    check(abs(ms - sw_kernel_ms) <= HEADLINE_TOLERANCE * sw_kernel_ms,
+          f"headline {ms:.4f} ms is not within "
+          f"{HEADLINE_TOLERANCE:.0%} of phase 3's {sw_kernel_ms:.4f} ms")
+
+    names = [r["metric"] for r in out["workloads"]]
+    check(names == list(ROWS), f"battery rows {names} != {list(ROWS)}")
+    for r in out["workloads"]:
+        print(f"[23 workloads] {r['metric']}: {r['value']:.1f} reads/s "
+              f"(median of {r['count']}; min {r['min']:.1f}, max "
+              f"{r['max']:.1f}) | launches {r['extra']['kernel_launches']}",
+              flush=True)
+
+    step = out["scaling"][0]
+    for r in step["rows"]:
+        print(f"[23 scaling] {r['devices']} shards of cuda:0: "
+              f"{r['reads_per_s']:.0f} reads/s, {r['batch_ms']:.4f} ms "
+              f"(min {r['min_ms']:.4f}, max {r['max_ms']:.4f}), efficiency "
+              f"{r['scaling_efficiency']:.3f}, exact "
+              f"{r['stats_bit_exact_vs_local']}", flush=True)
+    check([r["devices"] for r in step["rows"]] == [1, 2, 4]
+          and all(r["stats_bit_exact_vs_local"] for r in step["rows"]),
+          "the sharded WGS step differs from one shard")
+    check(step["performance_representative"] is False,
+          "shards of one card were called representative")
+
+    sizes = [r for r in out["multiprocess"] if "nproc" in r]
+    for r in sizes:
+        print(f"[23 multiprocess] N={r['nproc']}: merged {r['merged']}, "
+              f"slowest {r['max_wall_seconds']:.2f} s, all-gathers "
+              f"{r['allgather_calls']} ({r['allgather_bytes_out']} bytes "
+              f"out), work inflation {r['work_inflation']:.3f}", flush=True)
+    check([r["nproc"] for r in sizes] == [1, 2]
+          and sizes[0]["merged"] == sizes[1]["merged"],
+          "the N-process totals differ between N = 1 and 2")
+    wall = time.perf_counter() - t_phase
+    print(f"[23 wall] phase 23: {wall:.2f} s", flush=True)
+    check(wall < BENCH_PHASE_LIMIT_S,
+          f"phase 23 took {wall:.2f} s, over {BENCH_PHASE_LIMIT_S} s")
+    return out
+
+
 def report_shares(kernels: list[dict], peak_instr: float) -> None:
     """Each kernel's time against its bound; for the int32 kernels also
     against the measured ceiling: the chain's instruction rate in place of
@@ -3057,6 +3170,7 @@ def main() -> int:
         phase_profiles(tmp, env_path, results_dir, fx, genotype["wall"])
         phase_tools(tmp, results_dir)
         phase_parallel(rng, tmp, fx, main_pairs, total_bases, device)
+        phase_bench(info, kernel_ms)
     chain = phase_roofline(device)
     main_cells = float(MAIN_B) * MAIN_LEN * MAIN_LEN
     main_bytes = float(2 * MAIN_B * MAIN_PAD + 4 * MAIN_B)

@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -551,6 +552,56 @@ def band_bounds(M: int, C: int) -> list[tuple[int, int]]:
     return [(c * M // C, (c + 1) * M // C) for c in range(C)]
 
 
+@dataclass(frozen=True)
+class SweepPlan:
+    """The geometry of one host loop: ``bounds`` the (r0, r1) row bands,
+    ``width`` the strip width W, ``n_cols`` b's columns padded to
+    ``WIDTH_MULTIPLE``, ``groups`` the (s0, s1) strip ranges of each
+    group. Stage s runs group s - c of band c."""
+
+    bounds: list
+    width: int
+    n_cols: int
+    n_strips: int
+    strips_per_group: int
+    groups: list
+
+    @property
+    def stages(self) -> int:
+        return len(self.groups) + len(self.bounds) - 1
+
+    def group_cols(self, g: int) -> int:
+        """The columns of b that group g sweeps (its last strip may be
+        narrower)."""
+        s0, s1 = self.groups[g]
+        return min(s1 * self.width, self.n_cols) - s0 * self.width
+
+
+def sweep_plan(M: int, N: int, n_bands: int, strip_width: int, affine: bool,
+               strips_per_group: int | None = None) -> SweepPlan:
+    """The geometry :func:`_sweep` runs an M x N pair in: ``n_bands`` row
+    bands (:func:`band_bounds`), strips of ``strip_width`` columns (at most
+    the padded b), ``strips_per_group`` strips a group (None:
+    :func:`group_strips` at the tallest band's rows)."""
+    bounds = band_bounds(M, n_bands)
+    n_cols = -(-N // WIDTH_MULTIPLE) * WIDTH_MULTIPLE
+    W = min(strip_width, n_cols)
+    n_strips = -(-n_cols // W)
+    per_group = strips_per_group or group_strips(
+        max(r1 - r0 for r0, r1 in bounds), affine)
+    groups = [(s0, min(s0 + per_group, n_strips))
+              for s0 in range(0, n_strips, per_group)]
+    return SweepPlan(bounds, W, n_cols, n_strips, per_group, groups)
+
+
+def band_handoff_bytes(cols: int, affine: bool) -> int:
+    """Bytes one band hands the next for a group of ``cols`` columns: the
+    bottom H row with its corner (cols + 1 int32, the length
+    :func:`default_top` gives a top row) and, affine, the E row (cols
+    int32)."""
+    return 4 * (cols + 1) + (4 * cols if affine else 0)
+
+
 def _sweep(affine: bool, seq_a, seq_b, devices: list,
            strip_width: int, progress, gap_args: tuple = (),
            strips_per_group: int | None = None) -> int:
@@ -578,15 +629,10 @@ def _sweep(affine: bool, seq_a, seq_b, devices: list,
     if M == 0 or N == 0:
         return 0
     devs = list(devices)
-    bounds = band_bounds(M, len(devs))
-    bp = np.full(-(-N // WIDTH_MULTIPLE) * WIDTH_MULTIPLE, PAD_B, np.uint8)
+    plan = sweep_plan(M, N, len(devs), strip_width, affine, strips_per_group)
+    bounds, W, groups = plan.bounds, plan.width, plan.groups
+    bp = np.full(plan.n_cols, PAD_B, np.uint8)
     bp[:N] = b_np
-    W = min(strip_width, bp.size)
-    n_strips = -(-bp.size // W)
-    per_group = strips_per_group or group_strips(
-        max(r1 - r0 for r0, r1 in bounds), affine)
-    groups = [(s0, min(s0 + per_group, n_strips))
-              for s0 in range(0, n_strips, per_group)]
     fn = strip_best(affine, devs[0])
     bands = []
     for (r0, r1), dev in zip(bounds, devs):
