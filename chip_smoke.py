@@ -74,7 +74,13 @@ Phases, one line or more each; any failure raises and exits non-zero:
     1,500-base windows.
 12. Times (CUDA events, medians; each plain version once): the vs-ref
     kernel on the --rescue chunk and on 1,000 reads against the whole
-    reference, the traceback kernels on the --gapped chunk.
+    reference, the traceback kernels on the --gapped chunk. Batched CIGAR
+    alignment (``sw_align_batch``, ``sw_affine_align_batch``: the moves
+    kernel with its moves out, a host walk) on 2,048 pairs at the --gapped
+    chunk's 152 x 184 and 64 pairs at 300 x 700 (moves in device memory):
+    one launch a call, every Alignment == the plain CPU route's, and == the
+    golden on a sample; the kernel's ms with and without return_moves, the
+    cells' decode and host copy, the host walk.
 13. ``cli.main(["--variant-prep", ...])`` on the two lanes ungapped,
     --gapped and --gapped --gap-model affine (reads/s, mapping rate, SNP
     recall >= 95%, indel recall printed); --rescue --sam-out on the
@@ -117,7 +123,12 @@ Phases, one line or more each; any failure raises and exits non-zero:
     distinct, histogram and top 10; lane 1's dump on the card == on the
     CPU, byte for byte; a forced spill (capacity below the distinct count)
     == the unspilled counts; --canonical at k = 21 and k = 31 on a
-    20,000-read subset == count_kmers_python exactly.
+    20,000-read subset == count_kmers_python exactly. The drain codec:
+    the full run's 15.5 M-key store fetched raw (MPT_KMER_RAW_DRAIN=1) and
+    through the codec in turns, identical, each route's bytes and ms, kp
+    and cp; the forced spill without the codec == with it; the two lanes
+    counted with the sort fold and with MPT_KMER_RANK_FOLD=1, identical,
+    every fold's ms.
 
 20. Monitors and profiler traces: ``--full-wgs --mode sw`` on phase 4's
     files from a fresh checkpoint directory with ``--profile`` (its bench
@@ -1487,6 +1498,91 @@ def phase_moves_compare(rng, chunk: dict, gaps: tuple, device) -> dict:
     return out
 
 
+ALIGN_INPUTS = ((2_048, 152, 184, 6), (64, 300, 700, 3))  # B, M, N, golden
+
+
+def phase_align(rng, gaps: tuple, device) -> None:
+    """sw_align_batch and sw_affine_align_batch on the card (the moves
+    kernel with its moves out, decoded to cells, walked on the host): on
+    moves_pairs at the --gapped chunk's 152 x 184 (moves in shared memory)
+    and at 300 x 700 (device memory), every Alignment == the plain CPU
+    route's, and == the golden on a sample; the kernel launched once a
+    call (counts zeroed just before, read just after). Times: the kernel
+    with and without return_moves (CUDA events), the decode and host copy
+    of the cells, the host walk."""
+    import dataclasses
+
+    import torch
+
+    from mini_parallel_tpu_torch.ops import encode
+    from mini_parallel_tpu_torch.ops import sw_traceback as tb
+    from mini_parallel_tpu_torch.ops import sw_traceback_cuda as tbc
+
+    def fields(alns):
+        return [dataclasses.astuple(x) for x in alns]
+
+    for B, M, N, n_golden in ALIGN_INPUTS:
+        a, b = moves_pairs(rng, B, M, N, device)
+        a_np, b_np = a.cpu().numpy(), b.cpu().numpy()
+        for key, kernel, align, golden, walk, args in (
+                ("sw_moves", tbc.sw_moves_batch_cuda, tb.sw_align_batch,
+                 tb.sw_align_numpy, tb.traceback_host, ()),
+                ("sw_affine_moves", tbc.sw_affine_moves_batch_cuda,
+                 tb.sw_affine_align_batch, tb.sw_affine_align_numpy,
+                 tb.traceback_affine_host, gaps)):
+            affine = bool(args)
+            kernel.launches = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = align(a, b, *args)
+            wall = time.perf_counter() - t
+            launches = kernel.launches
+            check(launches == 1, f"{key}: sw_align_batch launched "
+                  f"{launches} kernels on {B} x {M} x {N}")
+            t = time.perf_counter()
+            plain = align(a.cpu(), b.cpu(), *args)
+            plain_s = time.perf_counter() - t
+            check(fields(got) == fields(plain),
+                  f"{key}: card Alignments != the plain CPU route's at "
+                  f"{B} x {M} x {N}")
+            sample = [int(p) for p in np.linspace(0, B - 1, n_golden)]
+            for p in sample:
+                want = golden(a_np[p][a_np[p] != encode.PAD_A].tobytes(),
+                              b_np[p][b_np[p] != encode.PAD_B].tobytes(),
+                              *args)
+                check(fields([got[p]]) == fields([want]),
+                      f"{key}: pair {p} != the golden at {B} x {M} x {N}")
+            cells = float(B) * M * N
+            bare = report_time(12, f"{key} kernel, positions only, {B} x {M}"
+                               f" vs {N}", time_samples(
+                                   lambda: kernel(a, b, *args), 5), cells)
+            moves = report_time(12, f"{key} kernel, return_moves, {B} x {M} "
+                                f"vs {N}", time_samples(
+                                    lambda: kernel(a, b, *args,
+                                                   return_moves=True), 5),
+                                cells)
+            best, bd, bi, _, words = kernel(a, b, *args, return_moves=True)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            host = tb._cells_to_host(words, M, N, affine)
+            fetch_s = time.perf_counter() - t
+            best, bd, bi = (x.cpu().numpy() for x in (best, bd, bi))
+            t = time.perf_counter()
+            walked = walk(best, bd, bi, host)
+            walk_s = time.perf_counter() - t
+            check(fields(walked) == fields(got), f"{key}: re-walk differs")
+            aligned = sum(x.score > 0 for x in got)
+            print(f"[12 align] {key} sw_align_batch {B} x {M} vs {N}"
+                  f"{f' {args}' if args else ''}: 1 launch; card == plain "
+                  f"CPU route on {B} pairs ({aligned} aligned), == golden on "
+                  f"{n_golden}; kernel {bare:.4f} ms, with return_moves "
+                  f"{moves:.4f} ms; cells decode + host copy "
+                  f"{1e3 * fetch_s:.2f} ms ({host.nbytes} bytes); host walk "
+                  f"{1e3 * walk_s:.2f} ms ({1e6 * walk_s / B:.1f} us a pair);"
+                  f" whole call {1e3 * wall:.2f} ms; plain CPU route "
+                  f"{1e3 * plain_s:.1f} ms", flush=True)
+
+
 def vcf_calls(path: str) -> set:
     calls = set()
     with open(path) as f:
@@ -2257,6 +2353,7 @@ def phase_kmer(tmp: str, fx: dict, env_path: str, device) -> dict:
                   f"{1e3 * sec:.2f} ms, {nbytes} bytes | write_counts {w}",
                   flush=True)
             regimes[label] = res, [ln for ln in lines if ln.startswith("  ")]
+        full_acc = accs[-1]  # the full run's store stays on the card
         (summ, summ_top), (full, full_top) = regimes.values()
         check(summ.arrays == () and len(full.arrays) == 2,
               "summary mode drained the table, or full mode did not")
@@ -2300,6 +2397,7 @@ def phase_kmer(tmp: str, fx: dict, env_path: str, device) -> dict:
               f"({spilled.distinct_kmers} distinct) | {n_reads / wall:.0f} "
               f"reads/s ({wall:.2f} s), drain incl. the spill folds "
               f"{1e3 * fetches[-1][1]:.2f} ms", flush=True)
+        kmer_routes(full_acc, full, spilled, cap, fx, device)
 
         stream = fastq.iter_read_chunks(fx["L1"], KMER_SUBSET_READS)
         reads = next(stream)
@@ -2322,6 +2420,88 @@ def phase_kmer(tmp: str, fx: dict, env_path: str, device) -> dict:
         (Acc.drain, Acc.summary, Eng.count_file, Eng._new_accumulator,
          Res.write_counts) = saved
     return out
+
+
+ROUTE_TURNS = 2  # raw, codec, codec, raw: each route's ms is a median
+
+
+def kmer_routes(acc, full, spilled, cap: int, fx: dict, device) -> None:
+    """The drain codec and the rank fold on phase 19's data: the full
+    run's store (15.5 M keys) fetched raw (MPT_KMER_RAW_DRAIN=1) and
+    through the codec, in turns, identical arrays, each route's bytes and
+    ms; the forced spill again without the codec, identical; the two lanes
+    counted with the sort fold and with MPT_KMER_RANK_FOLD=1, identical,
+    with every fold timed (synchronised before and after)."""
+    import torch
+
+    from mini_parallel_tpu_torch.models import kmer_model as km
+    from mini_parallel_tpu_torch.ops import kmer
+    from mini_parallel_tpu_torch.utils.config import Config
+
+    check(not {"MPT_KMER_RAW_DRAIN", "MPT_KMER_RANK_FOLD"} & set(os.environ),
+          "a k-mer route switch is set before phase 19 sets it")
+    keys, counts = acc._store
+    m = keys.numel()
+    check(m == full.distinct_kmers, "the full run's store is not its table")
+    _, kp, cp, _ = kmer.plane_pack(keys, counts)
+    route_bytes = {"raw": 16 * m, "codec": (kp + cp) * m + 32}
+    times = {"raw": [], "codec": []}
+    for route in ("raw", "codec", "codec", "raw") * (ROUTE_TURNS // 2):
+        with forced_env(**({"MPT_KMER_RAW_DRAIN": "1"} if route == "raw"
+                           else {})):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = acc._fetch(keys, counts)
+            times[route].append(1e3 * (time.perf_counter() - t))
+        check(np.array_equal(got[0], full.arrays[0])
+              and np.array_equal(got[1], full.arrays[1]),
+              f"the {route} fetch of the store != the full drain")
+    ms = {r: statistics.median(v) for r, v in times.items()}
+    print(f"[19 drain routes] {m} keys: raw {route_bytes['raw']} bytes "
+          f"{ms['raw']:.2f} ms; codec kp={kp} cp={cp} {route_bytes['codec']}"
+          f" bytes {ms['codec']:.2f} ms (medians of {ROUTE_TURNS}, "
+          f"interleaved); identical keys and counts", flush=True)
+
+    cfg = Config(chunk_size_reads=CHUNK_READS)
+    lanes = [fx["L1"], fx["L2"]]
+    t = time.perf_counter()
+    with forced_env(MPT_KMER_RAW_DRAIN="1"):
+        raw_spill = km.KmerEngine(cfg, device_capacity=cap, device=device
+                                  ).count_file(lanes)
+    raw_spill_s = time.perf_counter() - t
+    check(np.array_equal(raw_spill.arrays[0], spilled.arrays[0])
+          and np.array_equal(raw_spill.arrays[1], spilled.arrays[1]),
+          "the spill without the codec != the spill with it")
+    print(f"[19 spill routes] capacity {cap}: the spill without the codec "
+          f"== with it ({raw_spill_s:.2f} s)", flush=True)
+
+    Acc = kmer.DeviceKmerAccumulator
+    flush = Acc.flush
+    folds = []
+
+    def timed_flush(self):
+        if self._staged:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            flush(self)
+            torch.cuda.synchronize()
+            folds.append(1e3 * (time.perf_counter() - t))
+
+    Acc.flush = timed_flush
+    try:
+        for label, env in (("sort", {}), ("rank", {"MPT_KMER_RANK_FOLD": "1"})):
+            folds.clear()
+            with forced_env(**env):
+                res = km.KmerEngine(cfg, device=device).count_file(lanes)
+            check(np.array_equal(res.arrays[0], full.arrays[0])
+                  and np.array_equal(res.arrays[1], full.arrays[1]),
+                  f"the {label} fold's counts != the full run's")
+            print(f"[19 folds] {label} fold: {len(folds)} folds, "
+                  f"{sum(folds):.2f} ms in all (largest "
+                  f"{max(folds):.2f} ms); counts == the full run's",
+                  flush=True)
+    finally:
+        Acc.flush = flush
 
 
 # ---------------------------------------------------------------------------
@@ -3161,6 +3341,8 @@ def main() -> int:
         vs_ref = phase_vs_ref_compare(rng, eng, fx, chunk, device)
         moves = phase_moves_compare(rng, chunk, (cfg.gap_open,
                                                  cfg.gap_extend), device)
+        phase_align(np.random.default_rng(SEED + 12),
+                    (cfg.gap_open, cfg.gap_extend), device)
         del eng, chunk
         vp_launches = phase_variant_paths(fx, env_path, tmp, device)
         genotype = phase_genotype(fx, env_path, device)

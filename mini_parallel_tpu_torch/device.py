@@ -2,16 +2,47 @@
 
 The reference made the GPU mandatory (gpu.rs:33-48, main.rs:76-79). So
 does the port: :func:`require_cuda` returns the CUDA device or raises,
-unless the caller passed an explicit CPU device. There is no compile-cache
-helper: PyTorch runs eagerly, and the one kernel is built once per source
-hash (``_build.py``).
+unless the caller passed an explicit CPU device.
+:func:`is_accelerator_available` and :func:`get_devices` are the probes of
+gpu.rs:33 and :48 over the CUDA devices. There is no counterpart of the
+JAX package's ``enable_compile_cache``: PyTorch runs eagerly and compiles
+no program, and each kernel is built once per source hash (``_build.py``).
 """
 
 from __future__ import annotations
 
 import subprocess
+from dataclasses import dataclass, field
 
 import torch
+
+
+@dataclass
+class DeviceInfo:
+    """Mirror of GpuDevice (gpu.rs:18-22): name, platform, index, memory."""
+
+    name: str
+    platform: str
+    index: int
+    memory_gb: float | None = None
+    extra: dict = field(default_factory=dict)
+
+
+def is_accelerator_available() -> bool:
+    """Whether a CUDA device is present (is_gpu_available, gpu.rs:33)."""
+    return torch.cuda.is_available()
+
+
+def get_devices() -> list[DeviceInfo]:
+    """Every CUDA device, with its name and memory (get_gpu_devices,
+    gpu.rs:48); empty without CUDA."""
+    if not torch.cuda.is_available():
+        return []
+    return [DeviceInfo(name=torch.cuda.get_device_name(i), platform="gpu",
+                       index=i,
+                       memory_gb=torch.cuda.get_device_properties(i)
+                       .total_memory / 2**30)
+            for i in range(torch.cuda.device_count())]
 
 
 class NoAcceleratorError(RuntimeError):

@@ -31,6 +31,7 @@ from __future__ import annotations
 import functools
 import gzip
 import queue
+import sys
 import threading
 from typing import Callable, Iterator
 
@@ -197,7 +198,7 @@ def iter_flat_chunks(
         return
     for chunk in iter_read_chunks(path, chunk_size_reads, progress=progress,
                                   engine="python"):
-        yield _flatten_rows(chunk)
+        yield flatten_rows(chunk)
 
 
 def as_paths(path) -> list[str]:
@@ -220,6 +221,29 @@ def iter_flat_chunks_multi(paths, chunk_size_reads: int,
     """Flat chunk stream over a file list, every file on one engine."""
     return _over_paths(iter_flat_chunks, paths, chunk_size_reads,
                        progress=progress, engine=resolved_engine(engine))
+
+
+def iter_read_chunks_multi(paths, chunk_size_reads: int,
+                           progress: Callable[[str], None] | None = None,
+                           engine: str = "auto") -> Iterator[list[bytes]]:
+    """Read-list chunk stream over a file list, every file on one
+    engine."""
+    return _over_paths(iter_read_chunks, paths, chunk_size_reads,
+                       progress=progress, engine=resolved_engine(engine))
+
+
+def process_fastq_file_in_chunks(path: str, chunk_size_reads: int,
+                                 processor: Callable[[list[bytes]], None],
+                                 **kw) -> tuple[int, int]:
+    """Call ``processor`` on each chunk of :func:`iter_read_chunks` (the
+    reference's callback form, aligner.rs:107-178); ``kw`` go to the
+    stream. Returns (total reads, chunks)."""
+    total_reads = chunks = 0
+    for chunk in iter_read_chunks(path, chunk_size_reads, **kw):
+        processor(chunk)
+        total_reads += len(chunk)
+        chunks += 1
+    return total_reads, chunks
 
 
 def iter_read_chunks_with_quals(path: str, chunk_size_reads: int,
@@ -265,7 +289,7 @@ def iter_flat_chunks_with_quals(path: str, chunk_size_reads: int,
         return
     for seqs, quals in iter_read_chunks_with_quals(path, chunk_size_reads,
                                                    engine="python"):
-        yield (*_flatten_rows(seqs), *_flatten_rows(quals))
+        yield (*flatten_rows(seqs), *flatten_rows(quals))
 
 
 def iter_flat_chunks_with_quals_multi(paths, chunk_size_reads: int,
@@ -277,7 +301,17 @@ def iter_flat_chunks_with_quals_multi(paths, chunk_size_reads: int,
                        engine=resolved_engine(engine))
 
 
-def _flatten_rows(rows: list) -> tuple[np.ndarray, np.ndarray]:
+def iter_read_chunks_with_quals_multi(paths, chunk_size_reads: int,
+                                      engine: str = "auto"
+                                      ) -> Iterator[tuple[list[bytes],
+                                                          list[bytes]]]:
+    """(sequences, quals) chunk stream over a file list, every file on one
+    engine."""
+    return _over_paths(iter_read_chunks_with_quals, paths, chunk_size_reads,
+                       engine=resolved_engine(engine))
+
+
+def flatten_rows(rows: list) -> tuple[np.ndarray, np.ndarray]:
     """list[bytes] -> the flat (bytes, offsets) contract."""
     flat = np.frombuffer(b"".join(rows), np.uint8)
     offs = np.zeros(len(rows) + 1, np.int64)
@@ -367,10 +401,24 @@ def count_lines(path: str, engine: str = "auto") -> int:
     return n
 
 
+def count_lines_stdin(stream=None) -> int:
+    """Lines of a binary stream, standard input by default (the
+    ``stdin_linecount`` tool, tools/stdin_linecount.rs:3-21)."""
+    return sum(1 for _ in (sys.stdin.buffer if stream is None else stream))
+
+
 def count_bases(path: str, chunk_size_reads: int = 10_000,
                 engine: str = "auto") -> int:
     """Total sequence bases in a FASTQ file (aligner.rs:535-544)."""
     return sum(int(flat.size) for flat, _ in
+               iter_flat_chunks(path, chunk_size_reads, engine=engine))
+
+
+def count_reads(path: str, chunk_size_reads: int = 10_000,
+                engine: str = "auto") -> int:
+    """Reads (4-line records, a truncated last one included) in a FASTQ
+    file."""
+    return sum(len(offs) - 1 for _, offs in
                iter_flat_chunks(path, chunk_size_reads, engine=engine))
 
 

@@ -101,6 +101,21 @@ class ComplementarityEngine:
         """The one bucket rule: a multiple of 8 (not a power of two)."""
         return -(-max(self.cfg.read_pad, maxlen) // 8) * 8
 
+    def score_pairs_batch(self, r1: list[bytes], r2: list[bytes]
+                          ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(direct scores, comp scores, perfect mask) of one mate batch, a
+        value a pair, on the engine's device."""
+        pad = self._pad_for_len(max(max((len(r) for r in r1), default=1),
+                                    max((len(r) for r in r2), default=1)))
+        arr1, len1 = encode.pad_batch(r1, pad_to=pad,
+                                      pad_value=int(encode.PAD_A))
+        arr2, len2 = encode.pad_batch(r2, pad_to=pad,
+                                      pad_value=int(encode.PAD_B))
+        a, b, la, lb = (torch.from_numpy(x).to(self.device)
+                        for x in (arr1, arr2, len1, len2))
+        return tuple(x.cpu().numpy()
+                     for x in _pair_scores(a, b, la, lb, self.mode))
+
     def _flat_stats(self, f1, o1, f2, o2, n: int) -> torch.Tensor:
         """Deferred (3,) stats over the first n reads of two flat chunks
         (the io.fastq.iter_flat_chunks contract)."""

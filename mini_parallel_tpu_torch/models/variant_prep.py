@@ -638,6 +638,20 @@ class VariantPrepEngine:
         """A zero pileup accumulator on the engine's device."""
         return _new_pileup(len(self.index.ref_codes), self.device)
 
+    def process_reads_batch(self, reads: list[bytes], pileup_acc,
+                            quals: list[bytes] | None = None):
+        """:meth:`process_flat_batch` over a list of reads, with their
+        Phred+33 quality strings when ``min_base_quality`` is set (bases
+        past a short quality string pass)."""
+        arr, lens, pad = self._prep_batch_flat(*fastq.flatten_rows(reads))
+        qmask = None
+        if quals is not None:
+            if len(quals) != len(reads):
+                raise ValueError(f"{len(quals)} quality strings for "
+                                 f"{len(reads)} reads")
+            qmask = self._qual_mask_flat(*fastq.flatten_rows(quals), pad)
+        return self._process_prepped(arr, lens, pad, pileup_acc, qmask)
+
     def process_flat_batch(self, flat: np.ndarray, offs: np.ndarray,
                            pileup_acc):
         """One flat (bytes, offsets) chunk into ``pileup_acc`` (updated in

@@ -136,4 +136,31 @@ uint64_t ks_dump(void* h, int64_t* out_keys, int64_t* out_counts,
   return w;
 }
 
+// One-pass decoder of the drain codec's byte planes (ops/kmer.py:
+// plane_pack; its plain version is decode_planes_numpy there). planes is
+// kp + cp rows of m bytes: entry i's key delta is the little-endian
+// kp-byte integer planes[p * m + i], added mod 2^64 to the key before it
+// (entry 0's delta is 0 and key0 the first key, so deltas of keys in any
+// order wrap back exactly); its count is the cp-byte integer of the
+// trailing planes, or 1 when cp == 0.
+void ks_decode_planes(const uint8_t* planes, int64_t m, int32_t kp,
+                      int32_t cp, uint64_t key0, int64_t* out_keys,
+                      int64_t* out_counts) {
+  uint64_t key = key0;
+  for (int64_t i = 0; i < m; ++i) {
+    uint64_t delta = 0;
+    for (int32_t p = 0; p < kp; ++p)
+      delta |= static_cast<uint64_t>(planes[p * m + i]) << (8 * p);
+    key += delta;
+    out_keys[i] = static_cast<int64_t>(key);
+    uint64_t count = 1;
+    if (cp > 0) {
+      count = 0;
+      for (int32_t p = 0; p < cp; ++p)
+        count |= static_cast<uint64_t>(planes[(kp + p) * m + i]) << (8 * p);
+    }
+    out_counts[i] = static_cast<int64_t>(count);
+  }
+}
+
 }  // extern "C"

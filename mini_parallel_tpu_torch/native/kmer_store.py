@@ -1,6 +1,7 @@
-"""ctypes bindings for the native k-mer count store (kmer_store.cpp): the
-counterpart of mini_parallel_tpu/native/kmer_store.py on one int64 key (the
-k-mer's 2-bit string) in place of the (hi, lo) int32 pair."""
+"""ctypes bindings for the native k-mer count store and the drain codec's
+plane decoder (kmer_store.cpp): the counterpart of
+mini_parallel_tpu/native/kmer_store.py on one int64 key (the k-mer's 2-bit
+string) in place of the (hi, lo) int32 pair."""
 
 from __future__ import annotations
 
@@ -33,7 +34,30 @@ def load() -> ctypes.CDLL:
     lib.ks_get.argtypes = [ctypes.c_void_p, ctypes.c_int64]
     lib.ks_dump.restype = ctypes.c_uint64
     lib.ks_dump.argtypes = [ctypes.c_void_p, _I64P, _I64P, ctypes.c_uint64]
+    lib.ks_decode_planes.restype = None
+    lib.ks_decode_planes.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_uint64, _I64P, _I64P]
     return lib
+
+
+def decode_planes_native(planes: np.ndarray, m: int, kp: int, cp: int,
+                         key0: int) -> tuple[np.ndarray, np.ndarray]:
+    """One C++ pass over the drain codec's byte planes (ops/kmer.py:
+    plane_pack) -> (keys, counts), both int64. ``planes`` holds kp + cp
+    rows of m bytes; ``key0`` is the first key. BuildError when the
+    library cannot be built or loaded."""
+    planes = np.ascontiguousarray(planes, np.uint8).reshape(-1)
+    if planes.size != (kp + cp) * m or not 1 <= kp <= 8 or not 0 <= cp <= 8:
+        raise ValueError(f"{planes.size} plane bytes do not hold {m} keys "
+                         f"of kp={kp}, cp={cp}")
+    keys = np.empty(m, np.int64)
+    counts = np.empty(m, np.int64)
+    load().ks_decode_planes(
+        planes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), m, kp, cp,
+        key0 & ((1 << 64) - 1), keys.ctypes.data_as(_I64P),
+        counts.ctypes.data_as(_I64P))
+    return keys, counts
 
 
 class KmerStore:

@@ -51,6 +51,11 @@ class PackedBatch:
     def batch(self) -> int:
         return self.packed.shape[0]
 
+    def wire_bytes(self) -> int:
+        """Host->device bytes of the batch: its four arrays."""
+        return (self.packed.nbytes + self.exc_col.nbytes
+                + self.exc_val.nbytes + self.lengths.nbytes)
+
 
 def _exc_bucket(n: int) -> int:
     b = MIN_EXC_BUCKET

@@ -23,6 +23,12 @@ Layers:
     route by device: CPU tensors to the plain versions, CUDA tensors to the
     kernel ``csrc/sw_moves.cu`` (ops/sw_traceback_cuda.py), which fuses the
     walk. Nothing falls back from the kernel to the plain version.
+  - :func:`sw_align_batch`, :func:`sw_affine_align_batch`: batched local
+    alignment with CIGARs, one :class:`Alignment` a pair. The moves come
+    from the plain scans on CPU tensors and from the kernel, its moves
+    written out (``return_moves``), on CUDA tensors; either way they become
+    (B, M, N) cell codes, fetched to the host and walked there one pair at
+    a time (:func:`traceback_host`, :func:`traceback_affine_host`).
 """
 
 from __future__ import annotations
@@ -450,3 +456,138 @@ def sw_affine_positions_batch_best(seq_a: torch.Tensor, seq_b: torch.Tensor,
     best, _, _, positions = sw_traceback_cuda.sw_affine_moves_batch_cuda(
         seq_a, seq_b, gap_open, gap_extend)
     return best, positions
+
+
+# ---------------------------------------------------------------------------
+# Batched CIGAR alignment: device moves, host walk. The walk reads cell
+# (i, j)'s code at cells[p, i, j]; its tie rules are the goldens' (linear
+# DIAG > UP > LEFT; affine H prefers DIAG > E > F, E and F extend on ties,
+# which the scans already fixed in the codes).
+# ---------------------------------------------------------------------------
+
+CELLS_PER_FETCH = 1 << 26  # cells decoded on the card per host copy
+
+
+def _walk_cells(best, bd, bi, cells: np.ndarray, step) -> list[Alignment]:
+    """One host walk per pair over (B, M, N) cell codes; ``step(mv,
+    state)`` -> (op or None to stop, qi step, ji step, next state)."""
+    B, M, N = cells.shape
+    flat = memoryview(np.ascontiguousarray(cells, np.uint8).reshape(-1))
+    out = []
+    for p in range(B):
+        score = int(best[p])
+        if score <= 0:
+            out.append(Alignment(0, 0, 0, 0, 0, ""))
+            continue
+        i = int(bi[p])
+        j = int(bd[p]) - i
+        qi, ji, state, base = i, j, "H", p * M * N
+        ops = []
+        while qi >= 0 and ji >= 0:
+            op, di, dj, state = step(flat[base + qi * N + ji], state)
+            if op is None:
+                break
+            if op:
+                ops.append(op)
+            qi -= di
+            ji -= dj
+        out.append(Alignment(score=score, query_start=qi + 1,
+                             query_end=i + 1, ref_start=ji + 1,
+                             ref_end=j + 1,
+                             cigar=_rle("".join(reversed(ops)))))
+    return out
+
+
+def _linear_step(mv: int, state: str):
+    if mv == STOP:
+        return None, 0, 0, state
+    if mv == DIAG:
+        return "M", 1, 1, state
+    if mv == UP:
+        return "I", 1, 0, state
+    return "D", 0, 1, state
+
+
+def _affine_step(mv: int, state: str):
+    """The Gotoh walk's three states: in H the cell's source picks M or a
+    switch to E / F (no step); in E (F) a D (I) step, staying while the
+    cell's extend bit is set."""
+    if state == "H":
+        src = mv & 3
+        if src == STOP:
+            return None, 0, 0, state
+        if src == DIAG:
+            return "M", 1, 1, "H"
+        return "", 0, 0, "E" if src == E_SRC else "F"
+    if state == "E":
+        return "D", 0, 1, "E" if (mv >> 2) & 1 else "H"
+    return "I", 1, 0, "F" if (mv >> 3) & 1 else "H"
+
+
+def traceback_host(best, bd, bi, cells: np.ndarray) -> list[Alignment]:
+    """Walk linear-gap cell codes (B, M, N) to one :class:`Alignment` a
+    pair; best/bd/bi as the scans give them. A pair whose score is <= 0
+    gives ``Alignment(0, 0, 0, 0, 0, "")``."""
+    return _walk_cells(best, bd, bi, cells, _linear_step)
+
+
+def traceback_affine_host(best, bd, bi, cells: np.ndarray
+                          ) -> list[Alignment]:
+    """Walk affine cell bytes (``hsrc | eext << 2 | fext << 3``) to one
+    :class:`Alignment` a pair, as :func:`traceback_host`."""
+    return _walk_cells(best, bd, bi, cells, _affine_step)
+
+
+def _cells_to_host(words: torch.Tensor, M: int, N: int,
+                   affine: bool) -> np.ndarray:
+    """The kernel's moves words -> host (B, M, N) cell codes, decoded on
+    the card a slice of pairs at a time (the decode's int32 intermediates
+    take 12 bytes a cell)."""
+    B = words.shape[0]
+    cells = np.empty((B, M, N), np.uint8)
+    rows = max(1, CELLS_PER_FETCH // max(1, M * N))
+    for p in range(0, B, rows):
+        cells[p:p + rows] = sw_traceback_cuda.moves_to_cells(
+            words[p:p + rows], M, N, affine).cpu().numpy()
+    return cells
+
+
+def _align_batch(seq_a: torch.Tensor, seq_b: torch.Tensor, affine: bool,
+                 gap_open: int, gap_extend: int) -> list[Alignment]:
+    B, M = seq_a.shape
+    N = seq_b.shape[1]
+    if B == 0 or M == 0 or N == 0:
+        return [Alignment(0, 0, 0, 0, 0, "") for _ in range(B)]
+    if seq_a.device.type == "cpu" and seq_b.device.type == "cpu":
+        best, bd, bi, moves = (
+            sw_affine_moves_batch(seq_a, seq_b, gap_open, gap_extend)
+            if affine else sw_moves_batch(seq_a, seq_b))
+        cells = plain_moves_to_cells(moves, N).numpy()
+    else:
+        best, bd, bi, _, words = (
+            sw_traceback_cuda.sw_affine_moves_batch_cuda(
+                seq_a, seq_b, gap_open, gap_extend, return_moves=True)
+            if affine else sw_traceback_cuda.sw_moves_batch_cuda(
+                seq_a, seq_b, return_moves=True))
+        cells = _cells_to_host(words, M, N, affine)
+    walk = traceback_affine_host if affine else traceback_host
+    return walk(best.cpu().numpy(), bd.cpu().numpy(), bi.cpu().numpy(),
+                cells)
+
+
+def sw_align_batch(seq_a: torch.Tensor, seq_b: torch.Tensor
+                   ) -> list[Alignment]:
+    """Batched linear-gap local alignment with CIGARs: (B, M) uint8
+    PAD_A-padded queries x (B, N) uint8 PAD_B-padded references -> one
+    :class:`Alignment` a pair. The moves are computed on the operands'
+    device (the plain scan for CPU tensors, the CUDA kernel or an error
+    for anything else) and walked on the host."""
+    return _align_batch(seq_a, seq_b, False, 0, 0)
+
+
+def sw_affine_align_batch(seq_a: torch.Tensor, seq_b: torch.Tensor,
+                          gap_open: int = GAP_OPEN,
+                          gap_extend: int = GAP_EXTEND) -> list[Alignment]:
+    """Batched affine-gap (Gotoh) :func:`sw_align_batch`; a gap of length
+    L costs gap_open + L * gap_extend."""
+    return _align_batch(seq_a, seq_b, True, gap_open, gap_extend)

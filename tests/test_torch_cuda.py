@@ -444,6 +444,91 @@ def test_moves_kernels_match_plain(cuda_device, B, M, N, gaps):
     assert torch.equal(routed[0], best) and torch.equal(routed[1], pos)
 
 
+@pytest.mark.parametrize("B,M,N", [(300, 152, 184), (21, 300, 200),
+                                   (3, 200, 1500)])
+@pytest.mark.parametrize("gaps", [None, (-3, -1)])
+def test_align_batch_on_the_card_matches_plain(cuda_device, B, M, N, gaps):
+    """sw_align_batch / sw_affine_align_batch on CUDA tensors: one kernel
+    launch with its moves out, moves in shared memory (152 x 184) and in
+    device memory (rows past one stripe, 1,500-column windows); every
+    Alignment equals the plain route's on the CPU, and the golden's on a
+    few pairs."""
+    import dataclasses
+
+    from mini_parallel_tpu_torch.ops import sw_traceback as tb
+    from mini_parallel_tpu_torch.ops import sw_traceback_cuda as tbc
+
+    rng = np.random.default_rng(B * M + N + 1)
+    a, b = _moves_operands(rng, B, M, N, cuda_device)
+    if gaps is None:
+        kernel, align = tbc.sw_moves_batch_cuda, tb.sw_align_batch
+        golden = tb.sw_align_numpy
+    else:
+        kernel = tbc.sw_affine_moves_batch_cuda
+        align = lambda x, y: tb.sw_affine_align_batch(x, y, *gaps)  # noqa: E731
+        golden = lambda x, y: tb.sw_affine_align_numpy(x, y, *gaps)  # noqa: E731
+    n0 = kernel.launches
+    got = align(a, b)
+    assert kernel.launches == n0 + 1
+    fields = lambda alns: [dataclasses.astuple(x) for x in alns]  # noqa: E731
+    assert fields(got) == fields(align(a.cpu(), b.cpu()))
+    a_np, b_np = a.cpu().numpy(), b.cpu().numpy()
+    for p in range(min(B, 3)):
+        qa = a_np[p][a_np[p] != encode.PAD_A].tobytes()
+        qb = b_np[p][b_np[p] != encode.PAD_B].tobytes()
+        assert fields([got[p]]) == fields([golden(qa, qb)])
+
+
+@pytest.mark.parametrize("rank_fold", [False, True])
+@pytest.mark.parametrize("capacity", [1 << 20, 3000])
+def test_kmer_codec_and_rank_fold_on_the_card(cuda_device, monkeypatch,
+                                              capacity, rank_fold):
+    """The accumulator on the card: drains and spills through the codec
+    (and the rank fold, when set) == raw drains of the sort fold on the
+    CPU."""
+    from mini_parallel_tpu_torch.ops import kmer
+
+    rng = np.random.default_rng(5)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    batches = []
+    for _ in range(6):
+        reads = [rng.choice(acgt, int(rng.integers(10, 121))).tobytes()
+                 for _ in range(200)]
+        arr, lens = encode.pad_batch(reads, pad_to=128,
+                                     pad_value=int(encode.PAD_A))
+        batches.append((torch.from_numpy(arr), torch.from_numpy(lens)))
+
+    def drain(device):
+        acc = kmer.DeviceKmerAccumulator(capacity=capacity, staging_batches=2)
+        for arr, lens in batches:
+            keys, counts, _ = kmer.unique_counts_batch(
+                encode.ascii_to_code(arr.to(device)), lens.to(device), k=15)
+            acc.add(keys, counts)
+        return acc.spilled, acc.drain()
+
+    monkeypatch.delenv("MPT_KMER_RANK_FOLD", raising=False)
+    monkeypatch.setenv("MPT_KMER_RAW_DRAIN", "1")
+    want = drain(torch.device("cpu"))
+    monkeypatch.delenv("MPT_KMER_RAW_DRAIN")
+    monkeypatch.setattr(kmer, "COMPRESS_MIN_KEYS", 0)
+    if rank_fold:
+        monkeypatch.setenv("MPT_KMER_RANK_FOLD", "1")
+    got = drain(cuda_device)
+    assert got[0] == want[0] == (capacity == 3000)
+    assert np.array_equal(got[1][0], want[1][0])
+    assert np.array_equal(got[1][1], want[1][1])
+
+
+def test_get_devices_lists_the_cards(cuda_device):
+    from mini_parallel_tpu_torch import device
+
+    devs = device.get_devices()
+    assert device.is_accelerator_available()
+    assert len(devs) == torch.cuda.device_count()
+    assert devs[0].name == torch.cuda.get_device_name(0)
+    assert devs[0].platform == "gpu" and devs[0].memory_gb > 1
+
+
 @pytest.mark.parametrize("kw", [dict(gapped=True, rescue=True),
                                 dict(gapped=True, gap_model="affine"),
                                 dict(min_base_quality=10)])

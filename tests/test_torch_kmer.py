@@ -2,7 +2,10 @@
 against the JAX package on the same seeded inputs, exactly: window keys,
 batch counts, the device accumulator (folds, spills, summaries), the host
 merge, the engine in both result modes and on both aggregation paths,
-``write_counts`` bytes, checkpoints in both directions, and the CLI.
+``write_counts`` bytes, checkpoints in both directions, and the CLI; the
+drain codec (the planes == the JAX package's ``_plane_pack`` bytes at
+k <= 30, the native decoder == the NumPy decoder, codec drains and spills
+== raw ones) and the rank fold (== the sort fold).
 
 Keys: the port's int64 key is the JAX (hi, lo) pair joined
 (``kmer.join_keys``); at k <= 30 both orders agree. At k = 31 the JAX
@@ -29,6 +32,7 @@ from mini_parallel_tpu.utils.config import Config as JConfig
 from mini_parallel_tpu_torch import cli
 from mini_parallel_tpu_torch.io import fastq
 from mini_parallel_tpu_torch.models import kmer_model as km
+from mini_parallel_tpu_torch.native import kmer_store as kstore
 from mini_parallel_tpu_torch.ops import encode, kmer
 from mini_parallel_tpu_torch.utils.config import Config
 from tests.conftest import random_dna
@@ -646,3 +650,202 @@ def test_k31_jax_device_path_departs_from_its_golden():
     assert {kmer.key_to_string(key, 31) for key in keys.tolist()} == golden
     assert jkmer.pack_kmers(jencode.ascii_to_code(jnp.asarray(arr[:1])),
                             jnp.asarray(lens[:1]), 31)[0][0, 0] < 0
+
+
+# ---------------------------------------------------------------------------
+# The drain codec (plane_pack, the native and NumPy decoders) and the rank
+# fold
+# ---------------------------------------------------------------------------
+
+
+def _store(k, n_reads=400, canonical=False):
+    """A folded store of seeded reads with repeats: ascending distinct
+    keys and their counts."""
+    rng = np.random.default_rng(k)
+    reads = _reads(rng, n_reads, lo=k + 2, hi=120)
+    arr, lens = _codes(reads, 128)
+    keys, counts, _ = kmer.unique_counts_batch(
+        encode.ascii_to_code(torch.from_numpy(arr)), torch.from_numpy(lens),
+        k=k, canonical=canonical)
+    return keys, counts
+
+
+def _jax_planes(keys, counts, k, kp, cp):
+    """The JAX package's maxima and _plane_pack on the same store."""
+    hi, lo = kmer.split_keys(keys.numpy(), k)
+    s = kmer.lo_bits(k)
+    args = (jnp.asarray(hi), jnp.asarray(lo),
+            jnp.asarray(counts.numpy().astype(np.int32)))
+    mx_lo, mx_hi, mx_ct = (int(x) for x in np.asarray(
+        jkmer._plane_maxima(*args, s=s))[:3])
+    jkp = (4 + jkmer._planes_needed(mx_hi)) if mx_hi \
+        else jkmer._planes_needed(mx_lo)
+    jcp = 0 if mx_ct == 1 else jkmer._planes_needed(mx_ct)
+    return np.asarray(jkmer._plane_pack(*args, kp, cp, s=s)), jkp, jcp
+
+
+@pytest.mark.parametrize("k", [11, 21, 30])
+def test_planes_are_the_jax_plane_pack_bytes(k):
+    """At k <= 30 the port's delta planes equal the JAX package's
+    _plane_pack byte for byte, with the same kp and cp, and both decoders
+    give the store back."""
+    keys, counts = _store(k)
+    planes, kp, cp, key0 = kmer.plane_pack(keys, counts)
+    jplanes, jkp, jcp = _jax_planes(keys, counts, k, kp, cp)
+    assert (kp, cp) == (jkp, jcp) and cp > 0
+    assert planes.dtype == torch.uint8 and planes.shape == (kp + cp,
+                                                            keys.numel())
+    assert np.array_equal(planes.numpy().reshape(-1), jplanes)
+    m = keys.numel()
+    for dk, dc in (kmer.decode_planes_numpy(planes.numpy(), m, kp, cp, key0),
+                   kstore.decode_planes_native(planes.numpy(), m, kp, cp,
+                                               key0)):
+        assert np.array_equal(dk, keys.numpy())
+        assert np.array_equal(dc, counts.numpy())
+
+
+@pytest.mark.parametrize("canonical", [False, True])
+def test_k31_planes_decode_to_the_keys(canonical):
+    """At k = 31 the JAX order is signed, so only the decoded keys can be
+    held: they are the raw keys."""
+    keys, counts = _store(31, canonical=canonical)
+    planes, kp, cp, key0 = kmer.plane_pack(keys, counts)
+    dk, dc = kstore.decode_planes_native(planes.numpy(), keys.numel(), kp,
+                                         cp, key0)
+    assert np.array_equal(dk, keys.numpy())
+    assert np.array_equal(dc, counts.numpy())
+
+
+def _codec_cases():
+    rng = np.random.default_rng(17)
+    ascending = np.unique(rng.integers(0, 1 << 42, 3000))
+    return {
+        "ascending, counts to 2^33": (
+            ascending, rng.integers(1, 1 << 33, ascending.size)),
+        "all-ones counts (cp = 0)": (ascending, np.ones(ascending.size,
+                                                        np.int64)),
+        "any order (deltas wrap)": (
+            rng.integers(0, 1 << 62, 2000), rng.integers(1, 300, 2000)),
+        "one key": (np.array([(1 << 61) + 5]), np.array([7])),
+    }
+
+
+@pytest.mark.parametrize("case", list(_codec_cases()))
+def test_native_decoder_equals_numpy_decoder(case):
+    keys, counts = _codec_cases()[case]
+    planes, kp, cp, key0 = kmer.plane_pack(torch.from_numpy(keys),
+                                           torch.from_numpy(counts))
+    m = keys.size
+    native = kstore.decode_planes_native(planes.numpy(), m, kp, cp, key0)
+    numpy_ = kmer.decode_planes_numpy(planes.numpy(), m, kp, cp, key0)
+    for got in (native, numpy_):
+        assert got[0].dtype == got[1].dtype == np.int64
+        assert np.array_equal(got[0], keys)
+        assert np.array_equal(got[1], counts)
+    assert (kp == 8) == (case == "any order (deltas wrap)")
+    assert (cp == 0) == (case in ("all-ones counts (cp = 0)",))
+
+
+def test_native_decoder_refuses_a_short_buffer():
+    with pytest.raises(ValueError, match="plane bytes"):
+        kstore.decode_planes_native(np.zeros(10, np.uint8), 4, 2, 1, 0)
+    with pytest.raises(ValueError, match="plane bytes"):
+        kstore.decode_planes_native(np.zeros(36, np.uint8), 4, 9, 0, 0)
+
+
+def _accumulate(batches, capacity, staging):
+    acc = kmer.DeviceKmerAccumulator(capacity=capacity,
+                                     staging_batches=staging)
+    for (keys, counts, _), _ in batches:
+        acc.add(keys, counts)
+    return acc, acc.drain()
+
+
+@pytest.mark.parametrize("capacity,staging", [(1 << 12, 2), (1 << 12, 40),
+                                              (64, 1), (40, 2)])
+def test_codec_drain_equals_raw_drain(rng, monkeypatch, capacity, staging):
+    """With COMPRESS_MIN_KEYS at 0 every drain and spill goes through the
+    codec: the counts equal the raw fetch's and the JAX accumulator's
+    (test_compressed_drain_exact in the JAX tests), spilled or not."""
+    batches = _batches(rng)
+    monkeypatch.setenv("MPT_KMER_RAW_DRAIN", "1")
+    raw_acc, raw = _accumulate(batches, capacity, staging)
+    monkeypatch.delenv("MPT_KMER_RAW_DRAIN")
+    monkeypatch.setattr(kmer, "COMPRESS_MIN_KEYS", 0)
+    calls = []
+    real = kstore.decode_planes_native
+    monkeypatch.setattr(kstore, "decode_planes_native",
+                        lambda *a: calls.append(a[1:]) or real(*a))
+    acc, got = _accumulate(batches, capacity, staging)
+    assert calls and acc.spilled == raw_acc.spilled
+    assert np.array_equal(got[0], raw[0]) and np.array_equal(got[1], raw[1])
+    jacc = jkmer.DeviceKmerAccumulator(capacity=capacity,
+                                       staging_batches=staging)
+    for _, (hi, lo, ct, _) in batches:
+        jacc.add(hi, lo, ct)
+    want = _jax_triple(*jacc.drain(), 9)
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("k", [8, 13, 21, 31])
+def test_codec_drain_of_the_engine_is_the_golden(tmp_path, monkeypatch, k):
+    """The engine's drain through the codec at several k
+    (test_compressed_drain_tight_embedding in the JAX tests): the counts
+    of count_kmers_python, at k = 31 too."""
+    monkeypatch.setattr(kmer, "COMPRESS_MIN_KEYS", 0)
+    rng = np.random.default_rng(k)
+    reads = _reads(rng, 60, lo=k, hi=90)
+    path = str(tmp_path / "r.fastq.gz")
+    fastq.write_fastq(path, reads)
+    res = km.KmerEngine(Config(chunk_size_reads=16), k=k, device=CPU
+                        ).count_file(path)
+    got = dict(zip(res.arrays[0].tolist(), res.arrays[1].tolist()))
+    assert got == _golden(reads, k, False)
+
+
+def test_codec_without_its_decoder_raises(rng, monkeypatch):
+    """A decoder that cannot be built fails the drain: nothing falls back
+    to the NumPy decoder in silence."""
+    from mini_parallel_tpu_torch.native import BuildError
+
+    def no_build():
+        raise BuildError("g++ failed")
+
+    monkeypatch.setattr(kmer, "COMPRESS_MIN_KEYS", 0)
+    monkeypatch.setattr(kstore, "load", no_build)
+    acc = kmer.DeviceKmerAccumulator(capacity=1 << 12, staging_batches=2)
+    for (keys, counts, _), _ in _batches(rng):
+        acc.add(keys, counts)
+    with pytest.raises(BuildError):
+        acc.drain()
+
+
+@pytest.mark.parametrize("capacity,staging", [(1 << 12, 3), (1 << 12, 1),
+                                              (50, 2)])
+def test_rank_fold_equals_sort_fold(rng, monkeypatch, capacity, staging):
+    """MPT_KMER_RANK_FOLD merges the staged batches and the store by rank:
+    the drain equals the sort fold's, spilled or not
+    (test_rank_merge_fold_matches_sort_fold in the JAX tests)."""
+    batches = _batches(rng)
+    monkeypatch.delenv("MPT_KMER_RANK_FOLD", raising=False)
+    sort_acc, sort = _accumulate(batches, capacity, staging)
+    monkeypatch.setenv("MPT_KMER_RANK_FOLD", "1")
+    rank_acc, rank = _accumulate(batches, capacity, staging)
+    assert rank_acc.spilled == sort_acc.spilled
+    assert np.array_equal(rank[0], sort[0]) and np.array_equal(rank[1],
+                                                               sort[1])
+
+
+def test_rank_fold_of_runs_is_fold_counts():
+    """Runs of unequal lengths, shared keys, an empty run, an odd run
+    count: rank_fold == fold_counts of their concatenation."""
+    rng = np.random.default_rng(23)
+    runs = []
+    for n in (50, 0, 7, 300, 1, 64, 64):
+        keys = torch.from_numpy(np.unique(rng.integers(0, 500, n)))
+        runs.append((keys, torch.from_numpy(
+            rng.integers(1, 9, keys.numel()))))
+    got = kmer.rank_fold(runs)
+    want = kmer.fold_counts(torch.cat([r[0] for r in runs]),
+                            torch.cat([r[1] for r in runs]))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
