@@ -76,11 +76,12 @@ Phases, one line or more each; any failure raises and exits non-zero:
     kernel on the --rescue chunk and on 1,000 reads against the whole
     reference, the traceback kernels on the --gapped chunk. Batched CIGAR
     alignment (``sw_align_batch``, ``sw_affine_align_batch``: the moves
-    kernel with its moves out, a host walk) on 2,048 pairs at the --gapped
-    chunk's 152 x 184 and 64 pairs at 300 x 700 (moves in device memory):
-    one launch a call, every Alignment == the plain CPU route's, and == the
-    golden on a sample; the kernel's ms with and without return_moves, the
-    cells' decode and host copy, the host walk.
+    kernel with its moves out, a host walk of its moves words) on the
+    --gapped chunk's 10,000 pairs at 152 x 184 and 64 pairs at 300 x 700
+    (moves in device memory): one launch a call, every Alignment == the
+    plain CPU route's, and == the golden on a sample; the kernel's ms with
+    and without return_moves, the words' host copy, the host walk, and the
+    card memory the call takes.
 13. ``cli.main(["--variant-prep", ...])`` on the two lanes ungapped,
     --gapped and --gapped --gap-model affine (reads/s, mapping rate, SNP
     recall >= 95%, indel recall printed); --rescue --sam-out on the
@@ -123,12 +124,10 @@ Phases, one line or more each; any failure raises and exits non-zero:
     distinct, histogram and top 10; lane 1's dump on the card == on the
     CPU, byte for byte; a forced spill (capacity below the distinct count)
     == the unspilled counts; --canonical at k = 21 and k = 31 on a
-    20,000-read subset == count_kmers_python exactly. The drain codec:
-    the full run's 15.5 M-key store fetched raw (MPT_KMER_RAW_DRAIN=1) and
-    through the codec in turns, identical, each route's bytes and ms, kp
-    and cp; the forced spill without the codec == with it; the two lanes
-    counted with the sort fold and with MPT_KMER_RANK_FOLD=1, identical,
-    every fold's ms.
+    20,000-read subset == count_kmers_python exactly. The drain codec
+    beside the drain's raw fetch: the full run's 15.5 M-key store fetched
+    raw and through plane_pack and the native decoder in turns, identical,
+    each route's bytes and ms, kp and cp.
 
 20. Monitors and profiler traces: ``--full-wgs --mode sw`` on phase 4's
     files from a fresh checkpoint directory with ``--profile`` (its bench
@@ -1498,18 +1497,18 @@ def phase_moves_compare(rng, chunk: dict, gaps: tuple, device) -> dict:
     return out
 
 
-ALIGN_INPUTS = ((2_048, 152, 184, 6), (64, 300, 700, 3))  # B, M, N, golden
+ALIGN_INPUTS = ((CHUNK_READS, 152, 184, 6), (64, 300, 700, 3))  # B M N golden
 
 
 def phase_align(rng, gaps: tuple, device) -> None:
     """sw_align_batch and sw_affine_align_batch on the card (the moves
-    kernel with its moves out, decoded to cells, walked on the host): on
-    moves_pairs at the --gapped chunk's 152 x 184 (moves in shared memory)
-    and at 300 x 700 (device memory), every Alignment == the plain CPU
-    route's, and == the golden on a sample; the kernel launched once a
-    call (counts zeroed just before, read just after). Times: the kernel
-    with and without return_moves (CUDA events), the decode and host copy
-    of the cells, the host walk."""
+    kernel with its moves out, the words walked on the host): on
+    moves_pairs at the --gapped chunk's 10,000 x 152 x 184 (moves in
+    shared memory) and at 64 x 300 x 700 (device memory), every Alignment
+    == the plain CPU route's, and == the golden on a sample; the kernel
+    launched once a call (counts zeroed just before, read just after).
+    Times: the kernel with and without return_moves (CUDA events), the
+    host copy of the words, the host walk; the call's peak card memory."""
     import dataclasses
 
     import torch
@@ -1524,18 +1523,20 @@ def phase_align(rng, gaps: tuple, device) -> None:
     for B, M, N, n_golden in ALIGN_INPUTS:
         a, b = moves_pairs(rng, B, M, N, device)
         a_np, b_np = a.cpu().numpy(), b.cpu().numpy()
-        for key, kernel, align, golden, walk, args in (
+        for key, kernel, align, golden, args in (
                 ("sw_moves", tbc.sw_moves_batch_cuda, tb.sw_align_batch,
-                 tb.sw_align_numpy, tb.traceback_host, ()),
+                 tb.sw_align_numpy, ()),
                 ("sw_affine_moves", tbc.sw_affine_moves_batch_cuda,
-                 tb.sw_affine_align_batch, tb.sw_affine_align_numpy,
-                 tb.traceback_affine_host, gaps)):
+                 tb.sw_affine_align_batch, tb.sw_affine_align_numpy, gaps)):
             affine = bool(args)
             kernel.launches = 0
             torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
             got = align(a, b, *args)
             wall = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated() - base
             launches = kernel.launches
             check(launches == 1, f"{key}: sw_align_batch launched "
                   f"{launches} kernels on {B} x {M} x {N}")
@@ -1564,11 +1565,11 @@ def phase_align(rng, gaps: tuple, device) -> None:
             best, bd, bi, _, words = kernel(a, b, *args, return_moves=True)
             torch.cuda.synchronize()
             t = time.perf_counter()
-            host = tb._cells_to_host(words, M, N, affine)
+            host = words.cpu().numpy()
             fetch_s = time.perf_counter() - t
             best, bd, bi = (x.cpu().numpy() for x in (best, bd, bi))
             t = time.perf_counter()
-            walked = walk(best, bd, bi, host)
+            walked = tb.traceback_words_host(best, bd, bi, host, M, N, affine)
             walk_s = time.perf_counter() - t
             check(fields(walked) == fields(got), f"{key}: re-walk differs")
             aligned = sum(x.score > 0 for x in got)
@@ -1576,11 +1577,12 @@ def phase_align(rng, gaps: tuple, device) -> None:
                   f"{f' {args}' if args else ''}: 1 launch; card == plain "
                   f"CPU route on {B} pairs ({aligned} aligned), == golden on "
                   f"{n_golden}; kernel {bare:.4f} ms, with return_moves "
-                  f"{moves:.4f} ms; cells decode + host copy "
+                  f"{moves:.4f} ms; words host copy "
                   f"{1e3 * fetch_s:.2f} ms ({host.nbytes} bytes); host walk "
                   f"{1e3 * walk_s:.2f} ms ({1e6 * walk_s / B:.1f} us a pair);"
-                  f" whole call {1e3 * wall:.2f} ms; plain CPU route "
-                  f"{1e3 * plain_s:.1f} ms", flush=True)
+                  f" whole call {1e3 * wall:.2f} ms, card memory {peak} "
+                  f"bytes at its peak; plain CPU route {1e3 * plain_s:.1f} ms",
+                  flush=True)
 
 
 def vcf_calls(path: str) -> set:
@@ -2397,7 +2399,7 @@ def phase_kmer(tmp: str, fx: dict, env_path: str, device) -> dict:
               f"({spilled.distinct_kmers} distinct) | {n_reads / wall:.0f} "
               f"reads/s ({wall:.2f} s), drain incl. the spill folds "
               f"{1e3 * fetches[-1][1]:.2f} ms", flush=True)
-        kmer_routes(full_acc, full, spilled, cap, fx, device)
+        kmer_routes(full_acc, full)
 
         stream = fastq.iter_read_chunks(fx["L1"], KMER_SUBSET_READS)
         reads = next(stream)
@@ -2425,34 +2427,33 @@ def phase_kmer(tmp: str, fx: dict, env_path: str, device) -> dict:
 ROUTE_TURNS = 2  # raw, codec, codec, raw: each route's ms is a median
 
 
-def kmer_routes(acc, full, spilled, cap: int, fx: dict, device) -> None:
-    """The drain codec and the rank fold on phase 19's data: the full
-    run's store (15.5 M keys) fetched raw (MPT_KMER_RAW_DRAIN=1) and
-    through the codec, in turns, identical arrays, each route's bytes and
-    ms; the forced spill again without the codec, identical; the two lanes
-    counted with the sort fold and with MPT_KMER_RANK_FOLD=1, identical,
-    with every fold timed (synchronised before and after)."""
+def kmer_routes(acc, full) -> None:
+    """The drain codec beside the raw fetch the drain takes, on phase 19's
+    full store (15.5 M keys): fetched raw (acc._fetch) and packed on the
+    card (plane_pack), copied and decoded by the native decoder, in turns;
+    identical arrays, each route's bytes and ms."""
     import torch
 
-    from mini_parallel_tpu_torch.models import kmer_model as km
+    from mini_parallel_tpu_torch.native import kmer_store
     from mini_parallel_tpu_torch.ops import kmer
-    from mini_parallel_tpu_torch.utils.config import Config
 
-    check(not {"MPT_KMER_RAW_DRAIN", "MPT_KMER_RANK_FOLD"} & set(os.environ),
-          "a k-mer route switch is set before phase 19 sets it")
     keys, counts = acc._store
     m = keys.numel()
     check(m == full.distinct_kmers, "the full run's store is not its table")
+
+    def codec():
+        planes, kp, cp, key0 = kmer.plane_pack(keys, counts)
+        return kmer_store.decode_planes_native(planes.cpu().numpy(), m, kp,
+                                               cp, key0)
+
     _, kp, cp, _ = kmer.plane_pack(keys, counts)
     route_bytes = {"raw": 16 * m, "codec": (kp + cp) * m + 32}
     times = {"raw": [], "codec": []}
     for route in ("raw", "codec", "codec", "raw") * (ROUTE_TURNS // 2):
-        with forced_env(**({"MPT_KMER_RAW_DRAIN": "1"} if route == "raw"
-                           else {})):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            got = acc._fetch(keys, counts)
-            times[route].append(1e3 * (time.perf_counter() - t))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = acc._fetch(keys, counts) if route == "raw" else codec()
+        times[route].append(1e3 * (time.perf_counter() - t))
         check(np.array_equal(got[0], full.arrays[0])
               and np.array_equal(got[1], full.arrays[1]),
               f"the {route} fetch of the store != the full drain")
@@ -2461,47 +2462,6 @@ def kmer_routes(acc, full, spilled, cap: int, fx: dict, device) -> None:
           f"{ms['raw']:.2f} ms; codec kp={kp} cp={cp} {route_bytes['codec']}"
           f" bytes {ms['codec']:.2f} ms (medians of {ROUTE_TURNS}, "
           f"interleaved); identical keys and counts", flush=True)
-
-    cfg = Config(chunk_size_reads=CHUNK_READS)
-    lanes = [fx["L1"], fx["L2"]]
-    t = time.perf_counter()
-    with forced_env(MPT_KMER_RAW_DRAIN="1"):
-        raw_spill = km.KmerEngine(cfg, device_capacity=cap, device=device
-                                  ).count_file(lanes)
-    raw_spill_s = time.perf_counter() - t
-    check(np.array_equal(raw_spill.arrays[0], spilled.arrays[0])
-          and np.array_equal(raw_spill.arrays[1], spilled.arrays[1]),
-          "the spill without the codec != the spill with it")
-    print(f"[19 spill routes] capacity {cap}: the spill without the codec "
-          f"== with it ({raw_spill_s:.2f} s)", flush=True)
-
-    Acc = kmer.DeviceKmerAccumulator
-    flush = Acc.flush
-    folds = []
-
-    def timed_flush(self):
-        if self._staged:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            flush(self)
-            torch.cuda.synchronize()
-            folds.append(1e3 * (time.perf_counter() - t))
-
-    Acc.flush = timed_flush
-    try:
-        for label, env in (("sort", {}), ("rank", {"MPT_KMER_RANK_FOLD": "1"})):
-            folds.clear()
-            with forced_env(**env):
-                res = km.KmerEngine(cfg, device=device).count_file(lanes)
-            check(np.array_equal(res.arrays[0], full.arrays[0])
-                  and np.array_equal(res.arrays[1], full.arrays[1]),
-                  f"the {label} fold's counts != the full run's")
-            print(f"[19 folds] {label} fold: {len(folds)} folds, "
-                  f"{sum(folds):.2f} ms in all (largest "
-                  f"{max(folds):.2f} ms); counts == the full run's",
-                  flush=True)
-    finally:
-        Acc.flush = flush
 
 
 # ---------------------------------------------------------------------------

@@ -16,26 +16,23 @@ are dropped. Canonical mode keeps the smaller of a k-mer and its reverse
 complement. Nothing here is a kernel: the device work is sorts, scans and
 reductions in plain torch ops, on whatever device the tensors live on.
 
-The accumulator's fetches (its drain and every spill) take the drain codec
-past ``COMPRESS_MIN_KEYS`` keys unless ``MPT_KMER_RAW_DRAIN`` is set: the
-deltas of the ascending keys and the counts leave the device as byte
-planes, only as many as their largest value needs (:func:`plane_pack`),
-and the host decodes them in one C++ pass
-(native/kmer_store.py:decode_planes_native). ``MPT_KMER_RANK_FOLD`` folds
-the staged batches into the store by rank merges (:func:`rank_fold`) in
-place of the one sort (:func:`fold_counts`); both give the same store.
+The JAX package's drain codec is here as functions of its own: the deltas
+of ascending keys and their counts as byte planes, only as many as their
+largest value needs (:func:`plane_pack`, on the device), decoded on the
+host by one cumsum (:func:`decode_planes_numpy`) or one C++ pass
+(native/kmer_store.py:decode_planes_native). The accumulator does not use
+it: its drain and spills fetch the raw int64 arrays, which on the card
+take less time than packing and decoding the planes (PERF.md).
 """
 
 from __future__ import annotations
 
-import os
 import threading
 from collections import Counter
 
 import numpy as np
 import torch
 
-from mini_parallel_tpu_torch.native import kmer_store
 from mini_parallel_tpu_torch.ops import encode
 from mini_parallel_tpu_torch.ops import packed as packedmod
 
@@ -44,9 +41,6 @@ MAX_K = 31  # keys stay below 2^62: the sentinel sorts after every key
 SENTINEL = torch.iinfo(torch.int64).max
 ACGT = np.frombuffer(b"ACGT", np.uint8)  # code -> ASCII base
 EMPTY_ARRAYS = (np.empty(0, np.int64), np.empty(0, np.int64))
-# below this many keys the codec's extra reductions and host sync cost more
-# than the bytes it saves (tests patch it to 0)
-COMPRESS_MIN_KEYS = 1 << 16
 
 
 def lo_bits(k: int) -> int:
@@ -143,39 +137,6 @@ def fold_counts(keys: torch.Tensor, counts: torch.Tensor
     uniq, inverse = torch.unique_consecutive(keys, return_inverse=True)
     totals = torch.zeros(uniq.numel(), dtype=torch.int64, device=keys.device)
     return uniq, totals.index_add_(0, inverse, counts[order].to(torch.int64))
-
-
-def _rank_merge(a: tuple[torch.Tensor, torch.Tensor],
-                b: tuple[torch.Tensor, torch.Tensor]
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Merge two ascending (keys, counts) runs into one, equal keys kept
-    (a's before b's): an element's merged position is its index plus its
-    rank in the other run."""
-    (ka, ca), (kb, cb) = a, b
-    dev = ka.device
-    ra = torch.searchsorted(kb, ka, side="left") + torch.arange(
-        ka.numel(), device=dev)
-    rb = torch.searchsorted(ka, kb, side="right") + torch.arange(
-        kb.numel(), device=dev)
-    keys = torch.empty(ka.numel() + kb.numel(), dtype=ka.dtype, device=dev)
-    counts = torch.empty(keys.numel(), dtype=torch.int64, device=dev)
-    keys[ra], keys[rb] = ka, kb
-    counts[ra], counts[rb] = ca.to(torch.int64), cb.to(torch.int64)
-    return keys, counts
-
-
-def rank_fold(runs: list[tuple[torch.Tensor, torch.Tensor]]
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`fold_counts` of ascending (keys, counts) runs without a sort:
-    the runs merge pairwise by rank, level by level, then equal keys sum.
-    Every run must be ascending (a batch's distinct keys, the store)."""
-    while len(runs) > 1:
-        runs = [_rank_merge(runs[i], runs[i + 1]) if i + 1 < len(runs)
-                else runs[i] for i in range(0, len(runs), 2)]
-    keys, counts = runs[0]
-    uniq, inverse = torch.unique_consecutive(keys, return_inverse=True)
-    totals = torch.zeros(uniq.numel(), dtype=torch.int64, device=keys.device)
-    return uniq, totals.index_add_(0, inverse, counts.to(torch.int64))
 
 
 def _planes_needed(max_val: int) -> int:
@@ -281,14 +242,12 @@ class DeviceKmerAccumulator:
 
     ``add`` stages a batch's (keys, counts); every ``staging_batches``
     batches (or ``MAX_STAGING_SLOTS`` staged keys) ``flush`` folds the
-    store and the staged batches by one sort (by rank merges under
-    ``MPT_KMER_RANK_FOLD``). Nothing crosses to the host until ``drain``
-    or ``summary``. When a fold leaves more than ``capacity`` distinct
-    keys, the fold's result spills to a sorted host pair on a background
-    thread and the store restarts empty, so counts stay exact at any
-    number of distinct keys. A spill that fails poisons the accumulator:
-    every later ``drain`` raises. Drains and spills fetch through the
-    drain codec (:meth:`_fetch`).
+    store and the staged batches by one sort. Nothing crosses to the host
+    until ``drain`` or ``summary``. When a fold leaves more than
+    ``capacity`` distinct keys, the fold's result spills to a sorted host
+    pair on a background thread and the store restarts empty, so counts
+    stay exact at any number of distinct keys. A spill that fails poisons
+    the accumulator: every later ``drain`` raises.
     """
 
     MAX_STAGING_SLOTS = 1 << 26
@@ -305,8 +264,7 @@ class DeviceKmerAccumulator:
         self._spill_error: BaseException | None = None
 
     def add(self, keys: torch.Tensor, counts: torch.Tensor) -> None:
-        """Stage one batch's keys and counts (any order, repeats allowed;
-        ascending under ``MPT_KMER_RANK_FOLD``)."""
+        """Stage one batch's keys and counts (any order, repeats allowed)."""
         self._staged.append((keys, counts))
         self._staged_slots += keys.numel()
         if (len(self._staged) >= self.staging_batches
@@ -314,18 +272,14 @@ class DeviceKmerAccumulator:
             self.flush()
 
     def flush(self) -> None:
-        """Fold the staged batches into the store: one sort, or rank
-        merges under ``MPT_KMER_RANK_FOLD``."""
+        """Fold the staged batches into the store (one sort)."""
         if not self._staged:
             return
         parts = self._staged if self._store is None else [self._store,
                                                           *self._staged]
         self._staged, self._staged_slots = [], 0
-        if os.environ.get("MPT_KMER_RANK_FOLD"):
-            keys, counts = rank_fold(parts)
-        else:
-            keys, counts = fold_counts(torch.cat([p[0] for p in parts]),
-                                       torch.cat([p[1] for p in parts]))
+        keys, counts = fold_counts(torch.cat([p[0] for p in parts]),
+                                   torch.cat([p[1] for p in parts]))
         if keys.numel() > self.capacity:
             self._spill(keys, counts)
             self._store = None
@@ -334,15 +288,7 @@ class DeviceKmerAccumulator:
 
     def _fetch(self, keys: torch.Tensor, counts: torch.Tensor
                ) -> tuple[np.ndarray, np.ndarray]:
-        """Ascending device (keys, counts) -> host int64 arrays: past
-        ``COMPRESS_MIN_KEYS`` keys through the drain codec (unless
-        ``MPT_KMER_RAW_DRAIN`` is set), else raw, 16 bytes a key."""
-        m = keys.numel()
-        if m <= COMPRESS_MIN_KEYS or os.environ.get("MPT_KMER_RAW_DRAIN"):
-            return keys.cpu().numpy(), counts.cpu().numpy()
-        planes, kp, cp, key0 = plane_pack(keys, counts)
-        return kmer_store.decode_planes_native(planes.cpu().numpy(), m, kp,
-                                               cp, key0)
+        return keys.cpu().numpy(), counts.cpu().numpy()
 
     def _spill(self, keys: torch.Tensor, counts: torch.Tensor) -> None:
         """Fetch and merge one fold's result into the host pair on a worker

@@ -25,10 +25,11 @@ Layers:
     walk. Nothing falls back from the kernel to the plain version.
   - :func:`sw_align_batch`, :func:`sw_affine_align_batch`: batched local
     alignment with CIGARs, one :class:`Alignment` a pair. The moves come
-    from the plain scans on CPU tensors and from the kernel, its moves
-    written out (``return_moves``), on CUDA tensors; either way they become
-    (B, M, N) cell codes, fetched to the host and walked there one pair at
-    a time (:func:`traceback_host`, :func:`traceback_affine_host`).
+    from the plain scans on CPU tensors, as (B, M, N) cell codes walked by
+    :func:`traceback_host` / :func:`traceback_affine_host`; on CUDA tensors
+    from the kernel, its moves written out (``return_moves``), and the
+    host walks the fetched moves words themselves
+    (:func:`traceback_words_host`), decoding only the cells it visits.
 """
 
 from __future__ import annotations
@@ -460,31 +461,29 @@ def sw_affine_positions_batch_best(seq_a: torch.Tensor, seq_b: torch.Tensor,
 
 # ---------------------------------------------------------------------------
 # Batched CIGAR alignment: device moves, host walk. The walk reads cell
-# (i, j)'s code at cells[p, i, j]; its tie rules are the goldens' (linear
-# DIAG > UP > LEFT; affine H prefers DIAG > E > F, E and F extend on ties,
-# which the scans already fixed in the codes).
+# (i, j)'s code from the plain cells or from the kernel's moves words; its
+# tie rules are the goldens' (linear DIAG > UP > LEFT; affine H prefers
+# DIAG > E > F, E and F extend on ties, which the scans already fixed in
+# the codes).
 # ---------------------------------------------------------------------------
 
-CELLS_PER_FETCH = 1 << 26  # cells decoded on the card per host copy
 
-
-def _walk_cells(best, bd, bi, cells: np.ndarray, step) -> list[Alignment]:
-    """One host walk per pair over (B, M, N) cell codes; ``step(mv,
-    state)`` -> (op or None to stop, qi step, ji step, next state)."""
-    B, M, N = cells.shape
-    flat = memoryview(np.ascontiguousarray(cells, np.uint8).reshape(-1))
+def _walk(best, bd, bi, code, step) -> list[Alignment]:
+    """One host walk per pair: ``code(p, i, j)`` reads cell (i, j)'s move
+    code of pair p; ``step(mv, state)`` -> (op or None to stop, qi step,
+    ji step, next state)."""
     out = []
-    for p in range(B):
+    for p in range(len(best)):
         score = int(best[p])
         if score <= 0:
             out.append(Alignment(0, 0, 0, 0, 0, ""))
             continue
         i = int(bi[p])
         j = int(bd[p]) - i
-        qi, ji, state, base = i, j, "H", p * M * N
+        qi, ji, state = i, j, "H"
         ops = []
         while qi >= 0 and ji >= 0:
-            op, di, dj, state = step(flat[base + qi * N + ji], state)
+            op, di, dj, state = step(code(p, qi, ji), state)
             if op is None:
                 break
             if op:
@@ -496,6 +495,34 @@ def _walk_cells(best, bd, bi, cells: np.ndarray, step) -> list[Alignment]:
                              ref_end=j + 1,
                              cigar=_rle("".join(reversed(ops)))))
     return out
+
+
+def _cell_codes(cells: np.ndarray):
+    _, M, N = cells.shape
+    flat = memoryview(np.ascontiguousarray(cells, np.uint8).reshape(-1))
+    return lambda p, i, j: flat[(p * M + i) * N + j]
+
+
+def _word_codes(words: np.ndarray, M: int, N: int, affine: bool):
+    """Cell (i, j)'s code of pair p read from the kernel's moves words by
+    the arithmetic of sw_traceback_cuda.moves_layout (the per-cell form
+    of its ``moves_to_cells``)."""
+    R, P, codes, W = sw_traceback_cuda.moves_layout(M, N, affine)
+    bits = 32 // codes
+    mask = (1 << bits) - 1
+    per_pair, stripe_words = words.shape[1], W * 32 * P
+    flat = memoryview(np.ascontiguousarray(words, np.int32).reshape(-1))
+
+    def code(p: int, i: int, j: int) -> int:
+        stripe, rem = divmod(i, 32 * R)
+        lane, r = divmod(rem, R)
+        t = j + lane
+        word = flat[p * per_pair + stripe * stripe_words
+                    + t // codes * 32 * P + lane * P + r]
+        # int32 words shift in their sign, but the mask keeps the code
+        return (word >> bits * (t % codes)) & mask
+
+    return code
 
 
 def _linear_step(mv: int, state: str):
@@ -528,28 +555,24 @@ def traceback_host(best, bd, bi, cells: np.ndarray) -> list[Alignment]:
     """Walk linear-gap cell codes (B, M, N) to one :class:`Alignment` a
     pair; best/bd/bi as the scans give them. A pair whose score is <= 0
     gives ``Alignment(0, 0, 0, 0, 0, "")``."""
-    return _walk_cells(best, bd, bi, cells, _linear_step)
+    return _walk(best, bd, bi, _cell_codes(cells), _linear_step)
 
 
 def traceback_affine_host(best, bd, bi, cells: np.ndarray
                           ) -> list[Alignment]:
     """Walk affine cell bytes (``hsrc | eext << 2 | fext << 3``) to one
     :class:`Alignment` a pair, as :func:`traceback_host`."""
-    return _walk_cells(best, bd, bi, cells, _affine_step)
+    return _walk(best, bd, bi, _cell_codes(cells), _affine_step)
 
 
-def _cells_to_host(words: torch.Tensor, M: int, N: int,
-                   affine: bool) -> np.ndarray:
-    """The kernel's moves words -> host (B, M, N) cell codes, decoded on
-    the card a slice of pairs at a time (the decode's int32 intermediates
-    take 12 bytes a cell)."""
-    B = words.shape[0]
-    cells = np.empty((B, M, N), np.uint8)
-    rows = max(1, CELLS_PER_FETCH // max(1, M * N))
-    for p in range(0, B, rows):
-        cells[p:p + rows] = sw_traceback_cuda.moves_to_cells(
-            words[p:p + rows], M, N, affine).cpu().numpy()
-    return cells
+def traceback_words_host(best, bd, bi, words: np.ndarray, M: int, N: int,
+                         affine: bool) -> list[Alignment]:
+    """:func:`traceback_host` (:func:`traceback_affine_host` when
+    ``affine``) over the moves kernel's (B, words) int32 moves words,
+    fetched as they are: each step decodes the one cell it visits, so
+    nothing decodes the other cells of the M x N matrix."""
+    return _walk(best, bd, bi, _word_codes(words, M, N, affine),
+                 _affine_step if affine else _linear_step)
 
 
 def _align_batch(seq_a: torch.Tensor, seq_b: torch.Tensor, affine: bool,
@@ -562,17 +585,17 @@ def _align_batch(seq_a: torch.Tensor, seq_b: torch.Tensor, affine: bool,
         best, bd, bi, moves = (
             sw_affine_moves_batch(seq_a, seq_b, gap_open, gap_extend)
             if affine else sw_moves_batch(seq_a, seq_b))
-        cells = plain_moves_to_cells(moves, N).numpy()
-    else:
-        best, bd, bi, _, words = (
-            sw_traceback_cuda.sw_affine_moves_batch_cuda(
-                seq_a, seq_b, gap_open, gap_extend, return_moves=True)
-            if affine else sw_traceback_cuda.sw_moves_batch_cuda(
-                seq_a, seq_b, return_moves=True))
-        cells = _cells_to_host(words, M, N, affine)
-    walk = traceback_affine_host if affine else traceback_host
-    return walk(best.cpu().numpy(), bd.cpu().numpy(), bi.cpu().numpy(),
-                cells)
+        walk = traceback_affine_host if affine else traceback_host
+        return walk(best.numpy(), bd.numpy(), bi.numpy(),
+                    plain_moves_to_cells(moves, N).numpy())
+    best, bd, bi, _, words = (
+        sw_traceback_cuda.sw_affine_moves_batch_cuda(
+            seq_a, seq_b, gap_open, gap_extend, return_moves=True)
+        if affine else sw_traceback_cuda.sw_moves_batch_cuda(
+            seq_a, seq_b, return_moves=True))
+    return traceback_words_host(best.cpu().numpy(), bd.cpu().numpy(),
+                                bi.cpu().numpy(), words.cpu().numpy(), M, N,
+                                affine)
 
 
 def sw_align_batch(seq_a: torch.Tensor, seq_b: torch.Tensor

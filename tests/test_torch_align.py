@@ -146,28 +146,43 @@ def test_align_batch_empty_shapes(affine):
         assert _fields(got) == [(0, 0, 0, 0, 0, "")] * B
 
 
+def _long_query_pairs(rng):
+    """Queries of 200-300 bases (two stripes of the kernel's rows) that
+    hold their 90-base reference with an insertion or a deletion."""
+    ra, rb = [], []
+    for k in range(6):
+        t = random_dna(rng, 90)
+        mid = t[:40] + b"GGTA" + t[40:] if k % 2 else t[:30] + t[34:]
+        ra.append(random_dna(rng, int(rng.integers(110, 200))) + mid)
+        rb.append(t)
+    return ra, rb
+
+
+@pytest.mark.parametrize("M,N", [(64, 64), (300, 90)])
 @pytest.mark.parametrize("affine", [False, True])
-def test_kernel_words_reach_the_host_walk(affine, monkeypatch):
-    """The card route's decode: the kernel's moves words (stored as its
-    lanes store them) come to the host as the plain cells, a few pairs per
-    slice, and walk to the plain route's Alignments."""
-    rng = np.random.default_rng(11)
-    ra, rb = _indel_pairs(rng)
-    a, b = _padded(ra[1:8], rb[1:8], pad=64)
+def test_kernel_words_reach_the_host_walk(affine, M, N):
+    """The card route's host walk: the kernel's moves words (stored as its
+    lanes store them; two stripes of rows at M = 300) walk straight to the
+    plain route's Alignments, and moves_to_cells of the words is the plain
+    cells."""
+    rng = np.random.default_rng(11 + M)
+    ra, rb = (_indel_pairs(rng) if M == 64 else _long_query_pairs(rng))
+    a, _ = encode.pad_batch(ra[1:8], pad_to=M, pad_value=int(encode.PAD_A))
+    b, _ = encode.pad_batch(rb[1:8], pad_to=N, pad_value=int(encode.PAD_B))
     ta, tb_ = torch.from_numpy(a), torch.from_numpy(b)
     best, bd, bi, moves = (tb.sw_affine_moves_batch(ta, tb_, -3, -1)
                            if affine else tb.sw_moves_batch(ta, tb_))
-    cells = tb.plain_moves_to_cells(moves, 64)
-    words = torch.from_numpy(_kernel_moves_words(cells.numpy(), affine, rng))
-    monkeypatch.setattr(tb, "CELLS_PER_FETCH", 3 * 64 * 64)
-    host = tb._cells_to_host(words, 64, 64, affine)
-    assert np.array_equal(host, cells.numpy())
-    walk = tb.traceback_affine_host if affine else tb.traceback_host
-    got = walk(best.numpy(), bd.numpy(), bi.numpy(), host)
+    cells = tb.plain_moves_to_cells(moves, N)
+    words = _kernel_moves_words(cells.numpy(), affine, rng)
+    assert tbc.moves_words_per_pair(M, N, affine) == words.shape[1]
+    assert torch.equal(tbc.moves_to_cells(torch.from_numpy(words), M, N,
+                                          affine), cells)
+    got = tb.traceback_words_host(best.numpy(), bd.numpy(), bi.numpy(),
+                                  words, M, N, affine)
     want = (tb.sw_affine_align_batch(ta, tb_, -3, -1) if affine
             else tb.sw_align_batch(ta, tb_))
     assert _fields(got) == _fields(want)
-    assert tbc.moves_words_per_pair(64, 64, affine) == words.shape[1]
+    assert all(x.score > 0 for x in got)
 
 
 # ---------------------------------------------------------------------------

@@ -479,13 +479,11 @@ def test_align_batch_on_the_card_matches_plain(cuda_device, B, M, N, gaps):
         assert fields([got[p]]) == fields([golden(qa, qb)])
 
 
-@pytest.mark.parametrize("rank_fold", [False, True])
 @pytest.mark.parametrize("capacity", [1 << 20, 3000])
-def test_kmer_codec_and_rank_fold_on_the_card(cuda_device, monkeypatch,
-                                              capacity, rank_fold):
-    """The accumulator on the card: drains and spills through the codec
-    (and the rank fold, when set) == raw drains of the sort fold on the
-    CPU."""
+def test_kmer_codec_on_the_card(cuda_device, capacity):
+    """The accumulator on the card drains (spilled or not) what it drains
+    on the CPU, and plane_pack of the card's store decodes to it."""
+    from mini_parallel_tpu_torch.native import kmer_store
     from mini_parallel_tpu_torch.ops import kmer
 
     rng = np.random.default_rng(5)
@@ -498,25 +496,27 @@ def test_kmer_codec_and_rank_fold_on_the_card(cuda_device, monkeypatch,
                                      pad_value=int(encode.PAD_A))
         batches.append((torch.from_numpy(arr), torch.from_numpy(lens)))
 
-    def drain(device):
+    def accumulate(device):
         acc = kmer.DeviceKmerAccumulator(capacity=capacity, staging_batches=2)
         for arr, lens in batches:
             keys, counts, _ = kmer.unique_counts_batch(
                 encode.ascii_to_code(arr.to(device)), lens.to(device), k=15)
             acc.add(keys, counts)
-        return acc.spilled, acc.drain()
+        return acc
 
-    monkeypatch.delenv("MPT_KMER_RANK_FOLD", raising=False)
-    monkeypatch.setenv("MPT_KMER_RAW_DRAIN", "1")
-    want = drain(torch.device("cpu"))
-    monkeypatch.delenv("MPT_KMER_RAW_DRAIN")
-    monkeypatch.setattr(kmer, "COMPRESS_MIN_KEYS", 0)
-    if rank_fold:
-        monkeypatch.setenv("MPT_KMER_RANK_FOLD", "1")
-    got = drain(cuda_device)
-    assert got[0] == want[0] == (capacity == 3000)
-    assert np.array_equal(got[1][0], want[1][0])
-    assert np.array_equal(got[1][1], want[1][1])
+    want = accumulate(torch.device("cpu"))
+    acc = accumulate(cuda_device)
+    acc.flush()
+    if acc._store is not None:
+        planes, kp, cp, key0 = kmer.plane_pack(*acc._store)
+        assert planes.is_cuda
+        keys, counts = kmer_store.decode_planes_native(
+            planes.cpu().numpy(), acc._store[0].numel(), kp, cp, key0)
+        assert np.array_equal(keys, acc._store[0].cpu().numpy())
+        assert np.array_equal(counts, acc._store[1].cpu().numpy())
+    assert acc.spilled == want.spilled == (capacity == 3000)
+    got, want = acc.drain(), want.drain()
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
 
 
 def test_get_devices_lists_the_cards(cuda_device):

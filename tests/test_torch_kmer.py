@@ -3,9 +3,9 @@ against the JAX package on the same seeded inputs, exactly: window keys,
 batch counts, the device accumulator (folds, spills, summaries), the host
 merge, the engine in both result modes and on both aggregation paths,
 ``write_counts`` bytes, checkpoints in both directions, and the CLI; the
-drain codec (the planes == the JAX package's ``_plane_pack`` bytes at
-k <= 30, the native decoder == the NumPy decoder, codec drains and spills
-== raw ones) and the rank fold (== the sort fold).
+drain codec as functions of its own (the planes == the JAX package's
+``_plane_pack`` bytes at k <= 30, the native decoder == the NumPy decoder,
+drained stores round-trip through it).
 
 Keys: the port's int64 key is the JAX (hi, lo) pair joined
 (``kmer.join_keys``); at k <= 30 both orders agree. At k = 31 the JAX
@@ -653,8 +653,7 @@ def test_k31_jax_device_path_departs_from_its_golden():
 
 
 # ---------------------------------------------------------------------------
-# The drain codec (plane_pack, the native and NumPy decoders) and the rank
-# fold
+# The drain codec (plane_pack, the native and NumPy decoders)
 # ---------------------------------------------------------------------------
 
 
@@ -761,38 +760,45 @@ def _accumulate(batches, capacity, staging):
     return acc, acc.drain()
 
 
+def _round_trip(keys, counts):
+    """plane_pack of host arrays, then both decoders: each must give the
+    arrays back."""
+    planes, kp, cp, key0 = kmer.plane_pack(torch.from_numpy(keys),
+                                           torch.from_numpy(counts))
+    for got in (kmer.decode_planes_numpy(planes.numpy(), keys.size, kp, cp,
+                                         key0),
+                kstore.decode_planes_native(planes.numpy(), keys.size, kp,
+                                            cp, key0)):
+        assert np.array_equal(got[0], keys) and np.array_equal(got[1],
+                                                               counts)
+
+
 @pytest.mark.parametrize("capacity,staging", [(1 << 12, 2), (1 << 12, 40),
                                               (64, 1), (40, 2)])
-def test_codec_drain_equals_raw_drain(rng, monkeypatch, capacity, staging):
-    """With COMPRESS_MIN_KEYS at 0 every drain and spill goes through the
-    codec: the counts equal the raw fetch's and the JAX accumulator's
-    (test_compressed_drain_exact in the JAX tests), spilled or not."""
+def test_codec_round_trips_a_drained_store(rng, monkeypatch, capacity,
+                                           staging):
+    """The JAX accumulator's drain through its codec
+    (test_compressed_drain_exact in the JAX tests, its COMPRESS_MIN_KEYS
+    at 0) == the port's raw drain, spilled or not, and that drain
+    round-trips through the port's codec."""
     batches = _batches(rng)
-    monkeypatch.setenv("MPT_KMER_RAW_DRAIN", "1")
-    raw_acc, raw = _accumulate(batches, capacity, staging)
-    monkeypatch.delenv("MPT_KMER_RAW_DRAIN")
-    monkeypatch.setattr(kmer, "COMPRESS_MIN_KEYS", 0)
-    calls = []
-    real = kstore.decode_planes_native
-    monkeypatch.setattr(kstore, "decode_planes_native",
-                        lambda *a: calls.append(a[1:]) or real(*a))
     acc, got = _accumulate(batches, capacity, staging)
-    assert calls and acc.spilled == raw_acc.spilled
-    assert np.array_equal(got[0], raw[0]) and np.array_equal(got[1], raw[1])
+    monkeypatch.setattr(jkmer, "COMPRESS_MIN_KEYS", 0)
     jacc = jkmer.DeviceKmerAccumulator(capacity=capacity,
                                        staging_batches=staging)
     for _, (hi, lo, ct, _) in batches:
         jacc.add(hi, lo, ct)
     want = _jax_triple(*jacc.drain(), 9)
+    assert acc.spilled == (capacity < 100)
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    _round_trip(*got)
 
 
 @pytest.mark.parametrize("k", [8, 13, 21, 31])
-def test_codec_drain_of_the_engine_is_the_golden(tmp_path, monkeypatch, k):
-    """The engine's drain through the codec at several k
-    (test_compressed_drain_tight_embedding in the JAX tests): the counts
-    of count_kmers_python, at k = 31 too."""
-    monkeypatch.setattr(kmer, "COMPRESS_MIN_KEYS", 0)
+def test_codec_round_trips_the_engine_store(tmp_path, k):
+    """The engine's counts at several k, k = 31 too (the JAX tests'
+    test_compressed_drain_tight_embedding): count_kmers_python's, and the
+    codec gives them back."""
     rng = np.random.default_rng(k)
     reads = _reads(rng, 60, lo=k, hi=90)
     path = str(tmp_path / "r.fastq.gz")
@@ -801,51 +807,34 @@ def test_codec_drain_of_the_engine_is_the_golden(tmp_path, monkeypatch, k):
                         ).count_file(path)
     got = dict(zip(res.arrays[0].tolist(), res.arrays[1].tolist()))
     assert got == _golden(reads, k, False)
+    _round_trip(*res.arrays)
 
 
-def test_codec_without_its_decoder_raises(rng, monkeypatch):
-    """A decoder that cannot be built fails the drain: nothing falls back
-    to the NumPy decoder in silence."""
+def test_native_decoder_without_its_library_raises(monkeypatch):
+    """A decoder that cannot be built fails: nothing falls back to the
+    NumPy decoder in silence."""
     from mini_parallel_tpu_torch.native import BuildError
 
     def no_build():
         raise BuildError("g++ failed")
 
-    monkeypatch.setattr(kmer, "COMPRESS_MIN_KEYS", 0)
     monkeypatch.setattr(kstore, "load", no_build)
-    acc = kmer.DeviceKmerAccumulator(capacity=1 << 12, staging_batches=2)
-    for (keys, counts, _), _ in _batches(rng):
-        acc.add(keys, counts)
     with pytest.raises(BuildError):
-        acc.drain()
+        kstore.decode_planes_native(np.zeros(4, np.uint8), 4, 1, 0, 0)
 
 
 @pytest.mark.parametrize("capacity,staging", [(1 << 12, 3), (1 << 12, 1),
                                               (50, 2)])
-def test_rank_fold_equals_sort_fold(rng, monkeypatch, capacity, staging):
-    """MPT_KMER_RANK_FOLD merges the staged batches and the store by rank:
-    the drain equals the sort fold's, spilled or not
-    (test_rank_merge_fold_matches_sort_fold in the JAX tests)."""
+def test_sort_fold_is_order_free(rng, capacity, staging):
+    """The fold takes its batches in any order and their keys unsorted:
+    the batches reversed and each one shuffled drain to the same counts,
+    spilled or not."""
     batches = _batches(rng)
-    monkeypatch.delenv("MPT_KMER_RANK_FOLD", raising=False)
-    sort_acc, sort = _accumulate(batches, capacity, staging)
-    monkeypatch.setenv("MPT_KMER_RANK_FOLD", "1")
-    rank_acc, rank = _accumulate(batches, capacity, staging)
-    assert rank_acc.spilled == sort_acc.spilled
-    assert np.array_equal(rank[0], sort[0]) and np.array_equal(rank[1],
-                                                               sort[1])
-
-
-def test_rank_fold_of_runs_is_fold_counts():
-    """Runs of unequal lengths, shared keys, an empty run, an odd run
-    count: rank_fold == fold_counts of their concatenation."""
-    rng = np.random.default_rng(23)
-    runs = []
-    for n in (50, 0, 7, 300, 1, 64, 64):
-        keys = torch.from_numpy(np.unique(rng.integers(0, 500, n)))
-        runs.append((keys, torch.from_numpy(
-            rng.integers(1, 9, keys.numel()))))
-    got = kmer.rank_fold(runs)
-    want = kmer.fold_counts(torch.cat([r[0] for r in runs]),
-                            torch.cat([r[1] for r in runs]))
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    acc, want = _accumulate(batches, capacity, staging)
+    mixed = []
+    for (keys, counts, nu), jk in reversed(batches):
+        perm = torch.from_numpy(rng.permutation(keys.numel()))
+        mixed.append(((keys[perm], counts[perm], nu), jk))
+    macc, got = _accumulate(mixed, capacity, staging)
+    assert macc.spilled == acc.spilled
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
