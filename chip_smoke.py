@@ -143,7 +143,7 @@ Phases, one line or more each; any failure raises and exits non-zero:
 21. The port's tools: ``tools.kernel_check`` (15 PASS rows; its long rows
     at GATE_LONG), ``tools.smoke`` (13/13), ``linecount`` on phase 4's
     files and ``stdin_linecount`` in a subprocess, ``make_scale_data``
-    (4 lanes x 50,000 reads), a clean ``--full-wgs --mode kadane`` over
+    in a subprocess (4 lanes x 50,000 reads), a clean ``--full-wgs --mode kadane`` over
     them in 500-read chunks, the resilience soak at lane L003, chunk 60
     (the injection must fire once, the file must resume from chunk 50,
     every file equal to the clean run), and ``tools.autotune``'s winners.
@@ -171,6 +171,11 @@ Phases, one line or more each; any failure raises and exits non-zero:
     shard) and ``bench.multiprocess`` at 1 and 2 processes (identical
     merged totals). Every row must be correct and carry the card's name
     and power limit; the phase must take under 150 s.
+24. Every process the script started has ended. The script is the
+    subreaper of all it starts (an orphan comes back to it, not to init);
+    any process still running below it is named, sent SIGTERM, then
+    SIGKILL after STOP_GRACE_S, and reaped. This also runs when a phase
+    fails.
 
 Then one JSON line of kernel results (each with its bound: see
 tools/roofline.py), the nvidia-smi line, and last
@@ -2696,7 +2701,6 @@ def phase_tools(tmp: str, results_dir: str) -> dict:
         autotune,
         kernel_check,
         linecount,
-        make_scale_data,
         smoke,
         soak_resilience,
     )
@@ -2741,9 +2745,14 @@ def phase_tools(tmp: str, results_dir: str) -> dict:
 
     scale = os.path.join(tmp, "scale")
     t0 = time.perf_counter()
-    check(make_scale_data.main([scale, "--lanes", str(SCALE_LANES),
-                                "--reads-per-lane", str(SCALE_READS)]) == 0,
-          "make_scale_data failed")
+    # its spawn pool's resource tracker ends with the subprocess
+    proc = subprocess.run(
+        [sys.executable, "-m", "mini_parallel_tpu_torch.tools.make_scale_data",
+         scale, "--lanes", str(SCALE_LANES), "--reads-per-lane",
+         str(SCALE_READS)], capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0,
+          f"make_scale_data exited {proc.returncode}: {proc.stderr[-2000:]}")
     out["make_scale_data"] = time.perf_counter() - t0
     run = os.path.join(tmp, "soak")
     os.makedirs(run)
@@ -3269,6 +3278,92 @@ def kernel_entry(name: str, replaces: str, source: str, launches: int,
             "library_ms": None}
 
 
+PR_SET_CHILD_SUBREAPER = 36  # linux/prctl.h
+STOP_GRACE_S = 5.0  # SIGTERM to SIGKILL
+
+
+def adopt_orphans() -> None:
+    """Make this process the subreaper of every process it starts: one
+    whose parent ends first is re-parented here, not to init, so that
+    stop_descendants still finds it."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        err = ctypes.get_errno()
+        raise OSError(err, f"prctl(PR_SET_CHILD_SUBREAPER): {os.strerror(err)}")
+
+
+def descendants() -> dict[int, str]:
+    """Every live (not zombie) process below this one, from /proc: pid ->
+    its command line."""
+    children: dict[int, list[int]] = {}
+    live = set()
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue  # ended meanwhile
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        children.setdefault(int(ppid), []).append(int(entry))
+        if state != "Z":
+            live.add(int(entry))
+    found, todo = {}, [os.getpid()]
+    while todo:
+        for pid in children.get(todo.pop(), []):
+            todo.append(pid)
+            if pid in live:
+                try:
+                    with open(f"/proc/{pid}/cmdline", "rb") as f:
+                        found[pid] = f.read().replace(b"\0", b" ").decode(
+                            errors="replace").strip()
+                except OSError:
+                    found[pid] = "?"
+    return found
+
+
+def reap() -> None:
+    """Collect every child of this process that has ended."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def stop_descendants() -> int:
+    """End every process below this one that is still running: SIGTERM,
+    then SIGKILL after STOP_GRACE_S; each reaped. Names what it found on
+    stderr and returns how many there were; raises if one outlives
+    SIGKILL."""
+    import signal
+
+    reap()
+    found = descendants()
+    for pid, cmd in found.items():
+        print(f"chip_smoke: process {pid} still running, stopping it: "
+              f"{cmd[:300]}", file=sys.stderr, flush=True)
+    left = found
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in left:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, sig)
+        deadline = time.monotonic() + STOP_GRACE_S
+        while left and time.monotonic() < deadline:
+            time.sleep(0.05)
+            reap()
+            left = descendants()
+        if not left:
+            break
+    check(not left, f"processes outlived SIGKILL: {left}")
+    return len(found)
+
+
 def main() -> int:
     import torch
 
@@ -3276,6 +3371,17 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs one "
               "CUDA card", file=sys.stderr)
         return 1
+    adopt_orphans()
+    try:
+        return drive()
+    finally:
+        stop_descendants()
+
+
+def drive() -> int:
+    """Phases 1-24; main has checked for the card."""
+    import torch
+
     from mini_parallel_tpu_torch.device import require_cuda
     from mini_parallel_tpu_torch.models.variant_prep import VariantPrepEngine
     from mini_parallel_tpu_torch.tools import roofline
@@ -3350,6 +3456,9 @@ def main() -> int:
                      chain["steps"], chain["bytes"]),
     ]
     report_shares(kernels, chain["peak_instr"])
+    print(f"[24 stop] processes still running below the script at its end:"
+          f" {stop_descendants()} (each named on stderr, stopped and reaped)",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(info["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

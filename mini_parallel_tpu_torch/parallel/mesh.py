@@ -9,6 +9,7 @@ counterpart of the JAX tests' eight virtual host devices, and
 
 from __future__ import annotations
 
+import atexit
 import os
 from datetime import timedelta
 
@@ -147,7 +148,8 @@ def initialize_distributed() -> bool:
     world size that neither names is an error. The group is gloo: every
     value that crosses processes is a host array (``distributed.py``).
     Each process then selects ``cuda:(LOCAL_RANK or rank % device_count)``
-    when CUDA is available. Idempotent.
+    when CUDA is available. The group is destroyed at the interpreter's
+    exit. Idempotent.
     """
     coord = os.environ.get("JAX_COORDINATOR_ADDRESS")
     if not coord:
@@ -169,11 +171,21 @@ def initialize_distributed() -> bool:
     init = coord if "://" in coord else f"tcp://{coord}"
     dist.init_process_group("gloo", init_method=init, world_size=world,
                             rank=rank, timeout=timedelta(minutes=30))
+    atexit.register(_destroy_group)
     if torch.cuda.is_available():
         local = os.environ.get("LOCAL_RANK")
         torch.cuda.set_device(int(local) if local
                               else rank % torch.cuda.device_count())
     return True
+
+
+def _destroy_group() -> None:
+    """End gloo's threads and rank 0's store while the interpreter is
+    whole: left to its teardown, they can abort the process (SIGABRT)."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def process_index() -> int:
