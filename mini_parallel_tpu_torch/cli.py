@@ -10,7 +10,8 @@ plus its additions). Ported: ``--full-wgs``, ``--test-wgs``, direct
 ``--mode`` (kadane, sw, sw-affine, contiguous), with ``--allow-cpu``,
 ``--env``, ``--chunk-size``, ``--retries`` and ``--profile DIR`` (a
 ``torch.profiler`` trace of the whole run in the TensorBoard/Chrome trace
-layout). ``--full-wgs`` runs under the system monitors
+layout, with the program's spans, the FASTQ decoder's thread among them,
+and its counters). ``--full-wgs`` runs under the system monitors
 (utils/perf_logger.py: ``logs/run_N/``) and attaches their summary to its
 benchmark row. ``MPT_MESH_SHAPE`` (e.g. "4" or "1x4") shards every engine's
 batches over a device mesh (parallel/mesh.py): every local card, or with
@@ -135,8 +136,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--env", default=".env", help="path to .env config file")
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="capture a torch.profiler trace of the run into DIR "
-                   "(CPU, and CUDA on the card; view with TensorBoard or "
-                   "chrome://tracing)")
+                   "(CPU, and CUDA on the card) with the program's spans, "
+                   "the FASTQ decoder's thread among them, and its "
+                   "counters; view with Perfetto, TensorBoard or "
+                   "chrome://tracing")
     return p
 
 
@@ -145,18 +148,25 @@ def profiled(trace_dir: str, cuda: bool, echo=print):
     """A ``torch.profiler`` trace of the block (CPU activity, and CUDA
     activity when ``cuda``), written into ``trace_dir`` as
     ``<host>_<pid>.<ns>.pt.trace.json``, the layout TensorBoard's
-    profiler plugin and ``tensorboard_trace_handler`` use. The trace is
-    stopped and written however the block ends; a failed write raises."""
+    profiler plugin and ``tensorboard_trace_handler`` use. The span
+    recorder (utils/spans.py) runs for the block: the spans of the threads
+    the profiler does not capture (the FASTQ decoder's) and the counters
+    are appended to the trace, on its clock. The trace is stopped and
+    written however the block ends; a failed write raises."""
     import torch
+
+    from mini_parallel_tpu_torch.utils import spans
 
     activities = [torch.profiler.ProfilerActivity.CPU]
     if cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=activities)
     prof.start()
+    spans.start()
     try:
         yield
     finally:
+        rec = spans.stop()
         prof.stop()
         os.makedirs(trace_dir, exist_ok=True)
         path = os.path.join(trace_dir, f"{socket.gethostname()}_{os.getpid()}"
@@ -164,6 +174,7 @@ def profiled(trace_dir: str, cuda: bool, echo=print):
         prof.export_chrome_trace(path)
         if not os.path.isfile(path):
             raise OSError(f"the profiler wrote no trace to {path}")
+        spans.append_to_chrome_trace(path, rec)
         echo(f"Profile trace written to {path}")
 
 

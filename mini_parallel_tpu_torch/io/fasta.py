@@ -6,25 +6,27 @@ from __future__ import annotations
 import gzip
 
 from mini_parallel_tpu_torch.io.fastq import open_lines
+from mini_parallel_tpu_torch.utils import spans
 
 
 def read_fasta(path: str) -> dict[str, bytes]:
     """{name: sequence} for every record in a FASTA(.gz) file; sequence
-    lines are stripped and upper-cased."""
+    lines are stripped and upper-cased (the span ``fasta.read``)."""
     out: dict[str, bytes] = {}
     name = None
     parts: list[bytes] = []
-    for line in open_lines(path):
-        if line.startswith(b">"):
-            if name is not None:
-                out[name] = b"".join(parts)
-            fields = line[1:].split()
-            name = fields[0].decode() if fields else ""
-            parts = []
-        elif name is not None:
-            parts.append(line.strip().upper())
-    if name is not None:
-        out[name] = b"".join(parts)
+    with spans.span("fasta.read"):
+        for line in open_lines(path):
+            if line.startswith(b">"):
+                if name is not None:
+                    out[name] = b"".join(parts)
+                fields = line[1:].split()
+                name = fields[0].decode() if fields else ""
+                parts = []
+            elif name is not None:
+                parts.append(line.strip().upper())
+        if name is not None:
+            out[name] = b"".join(parts)
     return out
 
 

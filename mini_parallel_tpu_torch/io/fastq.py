@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import functools
 import gzip
+import itertools
 import queue
 import sys
 import threading
@@ -38,6 +39,7 @@ from typing import Callable, Iterator
 import numpy as np
 
 from mini_parallel_tpu_torch.native import BuildError, fastq_native
+from mini_parallel_tpu_torch.utils import spans
 
 PROGRESS_EVERY_LINES = 1_000_000
 MAX_LINE_ERRORS = 10  # more malformed lines than this abort a file, aligner.rs:161
@@ -328,6 +330,13 @@ class prefetch:
     ``with`` block (or :meth:`close`) stops the producer, closes the wrapped
     iterator on the producer's own thread and joins it — the producer's
     lifetime never depends on garbage collection.
+
+    Each item is one chunk, numbered from 0 in the stream's order. Spans
+    (utils/spans.py): ``fastq.decode`` is the producer's time in the
+    wrapped iterator's ``next()`` for each chunk (the last one finds the
+    stream's end), ``fastq.put_wait`` the producer blocked on a full queue,
+    ``fastq.wait`` the consumer blocked on an empty one; the counter
+    ``fastq.chunks`` counts the chunks decoded.
     """
 
     _END = object()
@@ -336,22 +345,35 @@ class prefetch:
         self._it = it
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
+        self._pulled = 0  # chunks handed to the consumer
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="mptt-prefetch")
         self._thread.start()
 
     def _put(self, item) -> bool:
-        while not self._stop.is_set():
-            try:
-                self._q.put(item, timeout=0.1)
-                return True
-            except queue.Full:
-                continue
+        try:
+            self._q.put_nowait(item)
+            return True
+        except queue.Full:
+            pass
+        with spans.span("fastq.put_wait"):
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
         return False
 
     def _run(self) -> None:
         try:
-            for item in self._it:
+            it = iter(self._it)
+            for chunk in itertools.count():
+                with spans.span("fastq.decode", chunk):
+                    item = next(it, self._END)
+                if item is self._END:
+                    break
+                spans.count("fastq.chunks")
                 if not self._put((None, item)):
                     return
             self._put((self._END, None))
@@ -366,12 +388,17 @@ class prefetch:
         return self
 
     def __next__(self):
-        kind, item = self._q.get()
+        try:
+            kind, item = self._q.get_nowait()
+        except queue.Empty:
+            with spans.span("fastq.wait", self._pulled):
+                kind, item = self._q.get()
         if kind is self._END:
             self._q.put((self._END, None))  # later pulls end too
             raise StopIteration
         if kind is not None:
             raise kind
+        self._pulled += 1
         return item
 
     def close(self) -> None:

@@ -51,6 +51,7 @@ from mini_parallel_tpu_torch.parallel.mesh import (
     pad_to_shards,
     shard_batch,
 )
+from mini_parallel_tpu_torch.utils import spans
 from mini_parallel_tpu_torch.utils.config import Config
 from mini_parallel_tpu_torch.utils.system_info import get_system_info
 
@@ -103,9 +104,11 @@ class FileResult:
     seconds: float = 0.0
     failed_chunks: int = 0  # skipped per aligner.rs:284-287 semantics
     # wall seconds the host spent blocked reading the device accumulator
-    # (each read waits for the device work queued before it)
+    # (each read waits for the device work queued before it): the
+    # align.drain.sync spans
     drain_seconds: float = 0.0
-    # wall seconds blocked on the first result of each new batch shape
+    # wall seconds blocked on the first result of each new batch shape:
+    # the align.warm.sync spans
     warmup_seconds: float = 0.0
 
 
@@ -183,10 +186,13 @@ class AlignmentEngine:
     def _packed_self_sum(self, kind: str, arr: np.ndarray,
                          lens: np.ndarray) -> torch.Tensor:
         """Pack a self-alignment batch and queue its device score sum."""
-        pb = packedmod.pack_batch(arr, lens)
+        with spans.span("align.pack"):
+            pb = packedmod.pack_batch(arr, lens)
+        with spans.span("align.put"):
+            shards = packedmod.put_sharded(pb, self.mesh)
         fn = self._packed_fn(kind, "self")
-        return collectives.merge_scores(
-            [fn(*args) for args in packedmod.put_sharded(pb, self.mesh)])
+        with spans.span("align.launch"):
+            return collectives.merge_scores([fn(*args) for args in shards])
 
     def _self_sum(self, kind: str, arr_a: np.ndarray, arr_b: np.ndarray,
                   len_a: np.ndarray, len_b: np.ndarray) -> torch.Tensor:
@@ -394,9 +400,9 @@ class AlignmentEngine:
 
         def drain():
             if acc[0] is not None:
-                td = time.perf_counter()
-                res.score += int(acc[0].item())
-                res.drain_seconds += time.perf_counter() - td
+                with spans.timed("align.drain.sync") as sync:
+                    res.score += int(acc[0].item())
+                res.drain_seconds += sync.seconds
             acc[0], acc[1] = None, 0
 
         def enqueue(val: torch.Tensor, bound: int):
@@ -409,9 +415,9 @@ class AlignmentEngine:
             """First result of a new batch shape: wait for it now and charge
             the wait to warmup_seconds, so drain_seconds stays steady-state."""
             if key not in self._warm_shapes:
-                tw = time.perf_counter()
-                val.item()
-                res.warmup_seconds += time.perf_counter() - tw
+                with spans.timed("align.warm.sync") as sync:
+                    val.item()
+                res.warmup_seconds += sync.seconds
                 self._warm_shapes.add(key)
             return val
 
@@ -422,13 +428,16 @@ class AlignmentEngine:
             batch = batch + [_EMPTY] * (device_batch_chunks - len(batch))
             pad = _bucket(max(len(c) for c in batch))
             check_device_budget(len(batch) * pad, self.device)
-            arr, lens = encode.pad_batch(
-                batch, pad_to=pad, pad_value=int(encode.PAD_A))
+            with spans.span("align.pad"):
+                arr, lens = encode.pad_batch(
+                    batch, pad_to=pad, pad_value=int(encode.PAD_A))
             kind = self._concat_kind()
             key = ("concat", kind, pad, len(batch))
             if self.cfg.packed_transfer and pad % 4 == 0:
                 return warm(key, self._packed_self_sum(kind, arr, lens))
-            return warm(key, self._self_sum(kind, arr, arr, lens, lens))
+            with spans.span("align.launch"):
+                val = self._self_sum(kind, arr, arr, lens, lens)
+            return warm(key, val)
 
         def skip_failed(e: Exception):
             # reference semantics (aligner.rs:284-287): log the per-chunk
@@ -463,9 +472,10 @@ class AlignmentEngine:
             on_checkpoint(res)
 
         # flat (bytes, offsets) chunks, decoded on a producer thread that
-        # overlaps pad/pack/dispatch and stops when this loop ends
-        with fastq.prefetch(fastq.iter_flat_chunks(
-                path, self.cfg.chunk_size_reads, progress=progress)) as chunks_it:
+        # overlaps pad/pack/dispatch and stops when this block ends
+        with spans.span("align.file"), fastq.prefetch(fastq.iter_flat_chunks(
+                path, self.cfg.chunk_size_reads,
+                progress=progress)) as chunks_it:
             for idx, (flat, offs) in enumerate(chunks_it):
                 if chunk_stride is not None:
                     p, n = chunk_stride
@@ -479,7 +489,7 @@ class AlignmentEngine:
                 res.total_bases += int(flat.size)
                 if self.mode in TWO_SIDED:
                     self._self_align_reads(flat, offs, n_reads, enqueue, warm,
-                                           skip_failed)
+                                           skip_failed, idx)
                 elif flat.size >= MIN_SELF_CHUNK_BASES:  # aligner.rs:366-368
                     # the flat buffer IS the chunk-concat (reads back to back)
                     pending.append(flat)
@@ -488,39 +498,44 @@ class AlignmentEngine:
                 if on_chunk is not None:
                     on_chunk(res)
                 maybe_checkpoint()
-        flush()
-        drain()  # one blocking read of the device total per file
+            flush()
+            drain()  # one blocking read of the device total per file
         res.seconds = prior_seconds + (time.perf_counter() - t0)
         return res
 
     def _self_align_reads(self, flat, offs, n_reads, enqueue, warm,
-                          skip_failed) -> None:
+                          skip_failed, chunk: int) -> None:
         """sw / sw-affine mode: queue one chunk's reads, each against
-        itself."""
-        pad = _bucket(int(np.diff(offs).max()) if n_reads else 1,
-                      floor=self.cfg.read_pad)
-        # bucket the ROW count too, so the final partial chunk reuses the
-        # full chunks' shape (zero-length pad rows score 0 by the
-        # PAD_A-vs-PAD_B sentinel contract)
-        Bp = (n_reads if n_reads >= self.cfg.chunk_size_reads
-              else min(self.cfg.chunk_size_reads, _bucket(n_reads, floor=128)))
-        key = ("reads", self.mode, pad, Bp)
-        try:
-            arr_a, la = encode.pad_batch_flat(
-                flat, offs, pad_to=pad, pad_value=int(encode.PAD_A),
-                rows_to=Bp)
-            bound = 2 * int(flat.size)
-            if self.cfg.packed_transfer and pad % 4 == 0:
-                enqueue(warm(key, self._packed_self_sum(self.mode, arr_a, la)),
-                        bound)
-            else:
-                arr_b = np.where(
-                    np.arange(pad, dtype=np.int32)[None, :] < la[:, None],
-                    arr_a, encode.PAD_B)
-                enqueue(warm(key, self._self_sum(self.mode, arr_a, arr_b,
-                                                 la, la)), bound)
-        except Exception as e:
-            skip_failed(e)
+        itself, in the span ``align.chunk`` (``chunk``: its index in the
+        file's stream)."""
+        with spans.span("align.chunk", chunk):
+            pad = _bucket(int(np.diff(offs).max()) if n_reads else 1,
+                          floor=self.cfg.read_pad)
+            # bucket the ROW count too, so the final partial chunk reuses the
+            # full chunks' shape (zero-length pad rows score 0 by the
+            # PAD_A-vs-PAD_B sentinel contract)
+            Bp = (n_reads if n_reads >= self.cfg.chunk_size_reads
+                  else min(self.cfg.chunk_size_reads,
+                           _bucket(n_reads, floor=128)))
+            key = ("reads", self.mode, pad, Bp)
+            packed = self.cfg.packed_transfer and pad % 4 == 0
+            try:
+                with spans.span("align.pad"):
+                    arr_a, la = encode.pad_batch_flat(
+                        flat, offs, pad_to=pad, pad_value=int(encode.PAD_A),
+                        rows_to=Bp)
+                    if not packed:
+                        arr_b = np.where(
+                            np.arange(pad, dtype=np.int32)[None, :]
+                            < la[:, None], arr_a, encode.PAD_B)
+                if packed:
+                    val = self._packed_self_sum(self.mode, arr_a, la)
+                else:
+                    with spans.span("align.launch"):
+                        val = self._self_sum(self.mode, arr_a, arr_b, la, la)
+                enqueue(warm(key, val), 2 * int(flat.size))
+            except Exception as e:
+                skip_failed(e)
 
     def pair_align_files(self, file1: str, file2: str,
                          progress=None) -> PairResult:

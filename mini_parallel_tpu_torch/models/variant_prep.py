@@ -71,6 +71,7 @@ from mini_parallel_tpu_torch.parallel.mesh import (
     mesh_device,
     shard_batch,
 )
+from mini_parallel_tpu_torch.utils import spans
 from mini_parallel_tpu_torch.utils.config import Config
 
 SEED_K = 15  # 2*15 = 30 bits: seed keys fit non-negative int32
@@ -559,20 +560,22 @@ class VariantPrepEngine:
         self.cfg = cfg or Config(chunk_size_reads=10_000)
         if gap_model not in ("linear", "affine"):
             raise ValueError(f"unknown gap_model {gap_model!r}")
-        self.device = require_cuda(mesh_device(mesh, device))
-        self.mesh = engine_mesh(mesh, self.device)
-        if isinstance(reference, dict):
-            concat, names, offs, lens = concat_contigs(reference,
-                                                       spacer=contig_spacer)
-            self.contig_names = names
-            self.contig_offsets = offs
-            self.contig_lengths = lens
-            reference = concat
-        else:
-            self.contig_names = ["ref"]
-            self.contig_offsets = np.asarray([0])
-            self.contig_lengths = np.asarray([len(reference)])
-        self.index = ReferenceIndex(reference, self.device)
+        with spans.span("variant.engine_init"):
+            self.device = require_cuda(mesh_device(mesh, device))
+            self.mesh = engine_mesh(mesh, self.device)
+            if isinstance(reference, dict):
+                concat, names, offs, lens = concat_contigs(
+                    reference, spacer=contig_spacer)
+                self.contig_names = names
+                self.contig_offsets = offs
+                self.contig_lengths = lens
+                reference = concat
+            else:
+                self.contig_names = ["ref"]
+                self.contig_offsets = np.asarray([0])
+                self.contig_lengths = np.asarray([len(reference)])
+            with spans.span("variant.index"):
+                self.index = ReferenceIndex(reference, self.device)
         # the index's device tensors on each shard device of the mesh
         self._shard_index: dict = {}
         self.min_depth = min_depth
@@ -657,8 +660,10 @@ class VariantPrepEngine:
         """One flat (bytes, offsets) chunk into ``pileup_acc`` (updated in
         place). The packed path returns the mapped count as a DEFERRED
         device scalar."""
-        arr, lens, pad = self._prep_batch_flat(flat, offs)
-        return self._process_prepped(arr, lens, pad, pileup_acc, None)
+        with spans.span("variant.prep"):
+            arr, lens, pad = self._prep_batch_flat(flat, offs)
+        with spans.span("variant.step"):
+            return self._process_prepped(arr, lens, pad, pileup_acc, None)
 
     def _index_on(self, dev: torch.device) -> tuple[torch.Tensor, ...]:
         """(sorted_keys, sorted_pos, ref_ascii) on ``dev``, copied once."""
@@ -835,24 +840,26 @@ class VariantPrepEngine:
         else:
             stream = fastq.iter_flat_chunks_multi(paths,
                                                   self.cfg.chunk_size_reads)
-        with fastq.prefetch(stream) as batches:
+        with spans.span("variant.pass1"), fastq.prefetch(stream) as batches:
             for idx, item in enumerate(batches):
                 if idx < start_chunk:  # resume: already in the saved pileup
                     continue
-                if self.min_base_quality > 0:
-                    flat, offs, qflat, qoffs = item
-                    arr, lens, pad = self._prep_batch_flat(flat, offs)
-                    n_reads = len(offs) - 1
-                    # a truncated final record has an EMPTY quality, whose
-                    # 0-length row passes the mask
-                    qmask = self._qual_mask_flat(qflat, qoffs, pad)
-                    pileup, n_mapped = self._process_prepped(
-                        arr, lens, pad, pileup, qmask)
-                else:
-                    flat, offs = item
-                    n_reads = len(offs) - 1
-                    pileup, n_mapped = self.process_flat_batch(flat, offs,
-                                                               pileup)
+                with spans.span("variant.chunk", idx):
+                    if self.min_base_quality > 0:
+                        flat, offs, qflat, qoffs = item
+                        with spans.span("variant.prep"):
+                            arr, lens, pad = self._prep_batch_flat(flat, offs)
+                            # a truncated final record has an EMPTY quality,
+                            # whose 0-length row passes the mask
+                            qmask = self._qual_mask_flat(qflat, qoffs, pad)
+                        with spans.span("variant.step"):
+                            pileup, n_mapped = self._process_prepped(
+                                arr, lens, pad, pileup, qmask)
+                    else:
+                        flat, offs = item
+                        pileup, n_mapped = self.process_flat_batch(
+                            flat, offs, pileup)
+                n_reads = len(offs) - 1
                 res.total_reads += n_reads
                 if isinstance(n_mapped, int):
                     res.mapped_reads += n_mapped
@@ -868,9 +875,11 @@ class VariantPrepEngine:
                     shown = (f"{res.mapped_reads} mapped" if not deferred
                              else f"{len(deferred)} batches queued")
                     progress(f"  {res.total_reads} reads, {shown}")
-        res.mapped_reads += _drain(deferred)
-        res.pileup = pileup_view(pileup).cpu().numpy()
-        res.candidates = self._extract_candidates(res.pileup)
+            with spans.span("variant.drain.sync"):
+                res.mapped_reads += _drain(deferred)
+                res.pileup = pileup_view(pileup).cpu().numpy()
+            with spans.span("variant.extract"):
+                res.candidates = self._extract_candidates(res.pileup)
         res.contigs = self.contig_table()
         res.seconds = time.perf_counter() - t0
         return res
@@ -946,42 +955,55 @@ class VariantPrepEngine:
         (only those assigned to a site), haplotype windows are cut from the
         reference in one indexed read; only an <INS> allele is spliced per
         site. The same contract as the JAX package's method."""
-        sites = [c for c in res.candidates
-                 if c.gl is None
-                 and (len(c.alt_base) == 1 or c.alt_base in ("<DEL>", "<INS>"))]
-        if not sites:
-            return res
-        off_by_name = dict(zip(self.contig_names,
-                               (int(x) for x in self.contig_offsets)))
-        abs_pos = np.array([off_by_name[c.contig] + c.pos for c in sites],
-                           np.int64)
-        reads = self._assign_reads(path, abs_pos, max_reads_per_site,
-                                   progress)
-        ins_seqs = self._infer_insertions(sites, reads, abs_pos)
-        lanes = self._genotype_lanes(sites, reads, abs_pos, ins_seqs, window)
-        if lanes is None:
-            return res
-        live, operands = lanes
-        lls, n_f64 = pairhmm_log10_padded(*operands, mesh=self.mesh)
-        if progress:
-            progress(f"  genotyping: {lls.numel()} Pair-HMM lanes, {n_f64} "
-                     "recomputed in float64")
-        lls = lls.cpu().numpy()
-        ends = 2 * np.cumsum(reads["per_site"][live])
-        for s_i, block in zip(live.tolist(), np.split(lls, ends[:-1])):
-            rr, ra, aa = pairhmm.genotype_likelihoods(block[0::2], block[1::2])
-            c = sites[s_i]
-            c.gl = (rr, ra, aa)
-            best = max(rr, ra, aa)
-            pl = [-10.0 * (g - best) for g in (rr, ra, aa)]
-            gt_i = int(np.argmin(pl))
-            c.gt = ("0/0", "0/1", "1/1")[gt_i]
-            c.gq = int(round(min(
-                min(p for i2, p in enumerate(pl) if i2 != gt_i), 99.0)))
-        # <INS> rewrites moved pos back by one; restore the VCF sort order
-        rank = {n: i for i, n in enumerate(self.contig_names)}
-        res.candidates.sort(key=lambda c: (rank.get(c.contig, len(rank)),
-                                           c.pos))
+        with spans.span("genotype"):
+            sites = [c for c in res.candidates
+                     if c.gl is None
+                     and (len(c.alt_base) == 1
+                          or c.alt_base in ("<DEL>", "<INS>"))]
+            if not sites:
+                return res
+            off_by_name = dict(zip(self.contig_names,
+                                   (int(x) for x in self.contig_offsets)))
+            abs_pos = np.array([off_by_name[c.contig] + c.pos
+                                for c in sites], np.int64)
+            with spans.span("genotype.remap"):
+                reads = self._assign_reads(path, abs_pos, max_reads_per_site,
+                                           progress)
+            with spans.span("genotype.insertions"):
+                ins_seqs = self._infer_insertions(sites, reads, abs_pos)
+            with spans.span("genotype.operands"):
+                lanes = self._genotype_lanes(sites, reads, abs_pos, ins_seqs,
+                                             window)
+            if lanes is None:
+                return res
+            live, operands = lanes
+            with spans.span("genotype.pairhmm"):
+                lls, n_f64 = pairhmm_log10_padded(*operands, mesh=self.mesh)
+                if progress:
+                    progress(f"  genotyping: {lls.numel()} Pair-HMM lanes, "
+                             f"{n_f64} recomputed in float64")
+                with spans.span("genotype.pairhmm.sync"):
+                    lls = lls.cpu().numpy()
+            with spans.span("genotype.calls"):
+                ends = 2 * np.cumsum(reads["per_site"][live])
+                for s_i, block in zip(live.tolist(),
+                                      np.split(lls, ends[:-1])):
+                    rr, ra, aa = pairhmm.genotype_likelihoods(block[0::2],
+                                                              block[1::2])
+                    c = sites[s_i]
+                    c.gl = (rr, ra, aa)
+                    best = max(rr, ra, aa)
+                    pl = [-10.0 * (g - best) for g in (rr, ra, aa)]
+                    gt_i = int(np.argmin(pl))
+                    c.gt = ("0/0", "0/1", "1/1")[gt_i]
+                    c.gq = int(round(min(
+                        min(p for i2, p in enumerate(pl) if i2 != gt_i),
+                        99.0)))
+                # <INS> rewrites moved pos back by one; restore the VCF sort
+                # order
+                rank = {n: i for i, n in enumerate(self.contig_names)}
+                res.candidates.sort(
+                    key=lambda c: (rank.get(c.contig, len(rank)), c.pos))
         return res
 
     def _assign_reads(self, path, abs_pos: np.ndarray, cap: int,
@@ -1006,32 +1028,41 @@ class VariantPrepEngine:
         stream = fastq.iter_flat_chunks_with_quals_multi(
             fastq.as_paths(path), self.cfg.chunk_size_reads)
         with fastq.prefetch(stream) as batches:
-            for flat, offs, qflat, qoffs in batches:
-                arr, lens, _ = self._prep_batch_flat(flat, offs)
-                # the mapped codes are dropped: the reads are oriented below
-                _, *mapping = _map_codes_batch(
-                    encode.ascii_to_code(torch.from_numpy(arr).to(dev)),
-                    torch.from_numpy(np.asarray(lens, np.int32)).to(dev),
-                    idx.sorted_keys, idx.sorted_pos, idx.ref_ascii_dev,
-                    SEED_K, self.rescue, self.rescue_min_frac)
-                starts, mapped, flipped = (t.cpu().numpy() for t in mapping)
-                lens_v = np.diff(offs)
-                lo = np.searchsorted(abs_sorted, starts, "left")
-                hi = np.searchsorted(abs_sorted, starts + lens_v, "left")
-                n_cov = np.where(mapped & (lens_v > 0), hi - lo, 0).clip(0)
-                read_of = np.repeat(np.arange(len(lens_v)), n_cov)
-                site_of = order[lo[read_of] + _ranks(n_cov)]
-                # each site takes its first reads in stream order
-                by_site = np.argsort(site_of, kind="stable")
-                rank = np.empty_like(by_site)
-                rank[by_site] = (np.arange(by_site.size) - np.searchsorted(
-                    site_of[by_site], site_of[by_site], "left"))
-                keep = counts[site_of] + rank < cap
-                counts += np.bincount(site_of[keep], minlength=S)
-                rows, inv = np.unique(read_of[keep], return_inverse=True)
+            for chunk, (flat, offs, qflat, qoffs) in enumerate(batches):
+                with spans.span("genotype.map", chunk):
+                    arr, lens, _ = self._prep_batch_flat(flat, offs)
+                    # the mapped codes are dropped: the reads are oriented
+                    # below
+                    _, *mapping = _map_codes_batch(
+                        encode.ascii_to_code(torch.from_numpy(arr).to(dev)),
+                        torch.from_numpy(np.asarray(lens, np.int32)).to(dev),
+                        idx.sorted_keys, idx.sorted_pos, idx.ref_ascii_dev,
+                        SEED_K, self.rescue, self.rescue_min_frac)
+                with spans.span("genotype.map.sync", chunk):
+                    starts, mapped, flipped = (t.cpu().numpy()
+                                               for t in mapping)
+                with spans.span("genotype.assign", chunk):
+                    lens_v = np.diff(offs)
+                    lo = np.searchsorted(abs_sorted, starts, "left")
+                    hi = np.searchsorted(abs_sorted, starts + lens_v, "left")
+                    n_cov = np.where(mapped & (lens_v > 0), hi - lo,
+                                     0).clip(0)
+                    read_of = np.repeat(np.arange(len(lens_v)), n_cov)
+                    site_of = order[lo[read_of] + _ranks(n_cov)]
+                    # each site takes its first reads in stream order
+                    by_site = np.argsort(site_of, kind="stable")
+                    rank = np.empty_like(by_site)
+                    rank[by_site] = (np.arange(by_site.size)
+                                     - np.searchsorted(site_of[by_site],
+                                                       site_of[by_site],
+                                                       "left"))
+                    keep = counts[site_of] + rank < cap
+                    counts += np.bincount(site_of[keep], minlength=S)
+                    rows, inv = np.unique(read_of[keep], return_inverse=True)
                 if rows.size:
-                    chunks.append(_oriented_reads(arr, lens, qflat, qoffs,
-                                                  starts, flipped, rows))
+                    with spans.span("genotype.orient", chunk):
+                        chunks.append(_oriented_reads(arr, lens, qflat, qoffs,
+                                                      starts, flipped, rows))
                     pair_sites.append(site_of[keep])
                     pair_rows.append(n_rows + inv)
                     n_rows += rows.size
@@ -1294,7 +1325,7 @@ def write_candidates_vcf(path: str, res: VariantPrepResult,
     if contigs is None:
         contigs = res.contigs or [("ref", res.reference_length)]
     genotyped = any(c.gl is not None for c in res.candidates)
-    with open(path, "w") as f:
+    with spans.span("vcf.write"), open(path, "w") as f:
         f.write("##fileformat=VCFv4.2\n")
         for name, length in contigs:
             f.write(f"##contig=<ID={name},length={length}>\n")

@@ -15,6 +15,7 @@ from __future__ import annotations
 import time
 
 from mini_parallel_tpu_torch.models.alignment import AlignmentEngine, FileResult
+from mini_parallel_tpu_torch.utils import spans
 from mini_parallel_tpu_torch.utils.bench_tracker import BenchmarkTracker
 from mini_parallel_tpu_torch.utils.checkpoint import (
     CheckpointState,
@@ -116,14 +117,16 @@ def process_full_wgs_dataset(
                                b + res.total_bases - b0, s + res.score - s0)
 
         def on_checkpoint(res: FileResult, _i=i, _path=path):
-            state.add_file_result(
-                FileCheckpoint(
-                    file_path=_path, file_index=_i, score=res.score,
-                    processing_time_ms=res.seconds * 1000.0,
-                    total_bases=res.total_bases, total_reads=res.total_reads,
-                    completed=False, chunks_done=res.chunks,
+            with spans.span("wgs.checkpoint"):
+                state.add_file_result(
+                    FileCheckpoint(
+                        file_path=_path, file_index=_i, score=res.score,
+                        processing_time_ms=res.seconds * 1000.0,
+                        total_bases=res.total_bases,
+                        total_reads=res.total_reads,
+                        completed=False, chunks_done=res.chunks,
+                    )
                 )
-            )
 
         attempt = 0
         while True:
@@ -168,14 +171,15 @@ def process_full_wgs_dataset(
                  f"skipped (scored 0)")
         tracker.add_device_seconds(res.drain_seconds)
         tracker.add_compile_seconds(res.warmup_seconds)
-        state.add_file_result(
-            FileCheckpoint(
-                file_path=path, file_index=i, score=res.score,
-                processing_time_ms=res.seconds * 1000.0,
-                total_bases=res.total_bases, total_reads=res.total_reads,
-                completed=True, chunks_done=res.chunks,
+        with spans.span("wgs.checkpoint"):
+            state.add_file_result(
+                FileCheckpoint(
+                    file_path=path, file_index=i, score=res.score,
+                    processing_time_ms=res.seconds * 1000.0,
+                    total_bases=res.total_bases, total_reads=res.total_reads,
+                    completed=True, chunks_done=res.chunks,
+                )
             )
-        )
         results.append(res)
 
     f, r, b, s = state.totals()  # aligner.rs:342-347

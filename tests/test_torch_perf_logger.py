@@ -272,8 +272,10 @@ def _trace(trace_dir) -> dict:
 @pytest.mark.parametrize("mode", ["full-wgs", "direct", "kmer",
                                   "failing files"])
 def test_cli_profile_writes_a_cpu_trace(tmp_path, rng, monkeypatch, mode):
-    """--profile DIR traces the whole dispatch on the CPU; a mode that
-    fails still leaves its trace."""
+    """--profile DIR traces the whole dispatch on the CPU, with the
+    program's spans: --full-wgs's chunk spans on the main thread and the
+    FASTQ decoder's on its own, placed by the anchor, and the counters; a
+    mode that fails still leaves its trace."""
     env, _ = _wgs_fixture(tmp_path, rng, monkeypatch)
     lane = str(tmp_path / "MON_L001_R1_001.fastq.gz")
     argv, rc = {
@@ -293,3 +295,14 @@ def test_cli_profile_writes_a_cpu_trace(tmp_path, rng, monkeypatch, mode):
         assert any(ln.startswith("ERROR:") for ln in out)
     else:
         assert "cpu_op" in cats
+    if mode == "full-wgs":
+        ann = [e for e in trace["traceEvents"] if e.get("ph") == "X"
+               and e.get("cat") == "user_annotation"]
+        main = {e["tid"] for e in ann if e["name"] == "align.file"}
+        decode = [e for e in ann if e["name"] == "fastq.decode"]
+        assert len(main) == 1 and decode
+        assert main.isdisjoint(e["tid"] for e in decode)
+        assert {"align.pad", "align.pack", "align.put", "align.launch",
+                "align.drain.sync"} <= {e["name"] for e in ann}
+        assert any(e.get("ph") == "C" and e["name"] == "fastq.chunks"
+                   for e in trace["traceEvents"])
