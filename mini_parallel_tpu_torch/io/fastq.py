@@ -13,8 +13,9 @@ stream of ``--variant-prep --min-base-quality`` follow the JAX package's
 stream functions. Each stream takes an ``engine``, as the JAX package's do:
 
 - ``"native"``: the C++ decoder (native/fastq_reader.cpp), which inflates
-  gzip and frames records on its own thread outside the interpreter lock;
-  it must build and load, or the stream raises BuildError;
+  gzip and frames records on its own thread outside the interpreter lock,
+  the members of a multi-member gzip file inflated ahead on a pool of
+  threads; it must build and load, or the stream raises BuildError;
 - ``"python"``: gzip and ``_record_blocks`` in this module, which frame
   records exactly as the native decoder does;
 - ``"auto"`` (the default): native when its library builds and loads,

@@ -2,12 +2,20 @@
 counterpart of mini_parallel_tpu/native/fastq_native.py.
 
 The decoder inflates gzip and frames 4-line records on a C++ worker thread
-with two chunks of readahead. ``ctypes.CDLL`` releases the interpreter lock
-for every call, so the worker decodes while the consumer pads, packs and
-dispatches. Every iterator closes its reader in ``finally``: a consumer
-that stops early (``break``, a closed generator) stops and joins the
-worker. A stream error raises ``IOError("Error reading <path>: ...")`` and
-the chunk it cut short is never yielded.
+with two chunks of readahead; the members of a multi-member gzip file are
+inflated ahead on a pool of threads, the bytes framed in file order.
+``ctypes.CDLL`` releases the interpreter lock for every call, so the worker
+decodes while the consumer pads, packs and dispatches. Every iterator
+closes its reader in ``finally``: a consumer that stops early (``break``, a
+closed generator) stops and joins the worker and the pool. A stream error
+raises ``IOError("Error reading <path>: ...")`` and the chunk it cut short
+is never yielded.
+
+A closed gzip reader adds its member counters to the span recorder
+(utils/spans.py): ``fastq.members`` (members inflated),
+``fastq.members_ahead`` (of those, inflated by a worker ahead of the
+framing thread) and ``fastq.split_rejected`` (candidate member starts that
+proved false).
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from typing import Iterator
 import numpy as np
 
 from mini_parallel_tpu_torch import native
+from mini_parallel_tpu_torch.utils import spans
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _I64P = ctypes.POINTER(ctypes.c_int64)
@@ -44,6 +53,8 @@ def load() -> ctypes.CDLL:
     for name in ("fq_total_reads", "fq_line_count", "fq_error_count"):
         getattr(lib, name).restype = _I64
         getattr(lib, name).argtypes = [ctypes.c_void_p]
+    lib.fq_member_stats.restype = None
+    lib.fq_member_stats.argtypes = [ctypes.c_void_p, _I64P]
     lib.fq_close.restype = None
     lib.fq_close.argtypes = [ctypes.c_void_p]
     lib.fq_count_lines.restype = _I64
@@ -61,6 +72,20 @@ def count_lines_native(path: str) -> int:
 
 def _ptr(a: np.ndarray, kind):
     return a.ctypes.data_as(kind)
+
+
+MEMBER_COUNTERS = ("fastq.members", "fastq.members_ahead",
+                   "fastq.split_rejected")
+
+
+def _close(lib, h) -> None:
+    """Close a reader; a gzip file's member counters go to the recorder."""
+    stats = np.zeros(len(MEMBER_COUNTERS), np.int64)
+    lib.fq_member_stats(h, _ptr(stats, _I64P))
+    lib.fq_close(h)
+    if stats[0] > 0:
+        for name, n in zip(MEMBER_COUNTERS, stats.tolist()):
+            spans.count(name, n)
 
 
 def _raise_stream_error(lib, h, path: str):
@@ -95,7 +120,7 @@ def iter_read_chunks_native(path: str, chunk_size_reads: int,
                 continue
             yield buf[:offs[n]].copy(), offs[:n + 1].copy()
     finally:
-        lib.fq_close(h)
+        _close(lib, h)
 
 
 def iter_reads_native(path: str, chunk_size_reads: int
@@ -140,7 +165,7 @@ def iter_flat_with_quals_native(path: str, chunk_size_reads: int,
             yield (buf[:offs[n]].copy(), offs[:n + 1].copy(),
                    qbuf[:qoffs[n]].copy(), qoffs[:n + 1].copy())
     finally:
-        lib.fq_close(h)
+        _close(lib, h)
 
 
 def iter_reads_with_quals_native(path: str, chunk_size_reads: int

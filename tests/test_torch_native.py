@@ -10,8 +10,10 @@ them, these tests skip with the build's error as the reason.
 import ctypes
 import gzip
 import os
+import struct
 import threading
 import time
+import zlib
 from collections import Counter
 
 import numpy as np
@@ -23,6 +25,7 @@ from mini_parallel_tpu_torch.io import fastq
 from mini_parallel_tpu_torch.native import fastq_native, kmer_store
 from mini_parallel_tpu_torch.ops import kmer
 from mini_parallel_tpu_torch.ops import packed
+from mini_parallel_tpu_torch.utils import spans
 from tests.conftest import random_dna
 
 
@@ -217,6 +220,228 @@ def test_corrupt_gzip_raises_and_yields_no_partial_chunk(tmp_path,
     assert str(e.value) == str(je.value)
 
 
+# ----------------------------------------------------------------------
+# multi-member gzip: members inflated ahead on the decoder's worker pool
+# ----------------------------------------------------------------------
+
+
+def _fastq_text(rng, n: int) -> bytes:
+    """``n`` records of 20-179 bases with random quality lines."""
+    ends = np.cumsum(rng.integers(20, 180, n)).tolist()
+    bases = np.frombuffer(b"ACGT", np.uint8)[
+        rng.integers(0, 4, ends[-1])].tobytes()
+    quals = rng.integers(33, 74, ends[-1], dtype=np.uint8).tobytes()
+    return b"".join(b"@r%d\n%s\n+\n%s\n" % (i, bases[a:b], quals[a:b])
+                    for i, (a, b) in enumerate(zip([0, *ends], ends)))
+
+
+def _gz(data: bytes, level: int = 1) -> bytes:
+    return gzip.compress(data, compresslevel=level, mtime=0)
+
+
+def _cut(text: bytes, cuts) -> list[bytes]:
+    edges = [0, *sorted(cuts), len(text)]
+    return [text[a:b] for a, b in zip(edges, edges[1:])]
+
+
+def _record_cuts(text: bytes, records: int) -> list[int]:
+    """Byte offsets that split ``text`` every ``records`` records."""
+    starts = [i + 1 for i in range(len(text) - 1)
+              if text[i] == 10 and text[i + 1] == ord("@")]
+    return starts[records - 1::records]
+
+
+def _bgzf(text: bytes, block: int = 60_000) -> bytes:
+    """BGZF as bgzip writes it: members with a BC extra subfield giving
+    each member's size, then the empty end-of-file member."""
+    out = []
+    for lo in range(0, len(text) + 1, block):
+        data = text[lo:lo + block]
+        if not data and lo:
+            break
+        c = zlib.compressobj(6, zlib.DEFLATED, -15)
+        body = c.compress(data) + c.flush()
+        size = 18 + 6 + len(body)
+        out.append(b"\x1f\x8b\x08\x04\0\0\0\0\0\xff\x06\0BC\x02\0"
+                   + struct.pack("<H", size - 1) + body
+                   + struct.pack("<II", zlib.crc32(data), len(data)))
+    eof = bytes.fromhex("1f8b08040000000000ff0600424302001b00"
+                        "03000000000000000000")
+    return b"".join(out) + eof
+
+
+def _stored(data: bytes) -> bytes:
+    c = zlib.compressobj(0, zlib.DEFLATED, 31)
+    return c.compress(data) + c.flush()
+
+
+def _member_file(rng, case: str) -> bytes:
+    """A multi-member gzip file written by hand, for each case."""
+    text = _fastq_text(rng, 6000)  # ~0.9 MB, 1.2 MB with text2
+    text2 = text + _fastq_text(rng, 2000)
+    cuts = sorted(int(c) for c in rng.integers(1, len(text), 30))
+    if case == "one_member":
+        return _gz(text2)
+    if case == "members_beyond_workers":
+        return b"".join(_gz(p) for p in _cut(text2, _record_cuts(text2, 180)))
+    if case == "cut_inside_lines":
+        return b"".join(_gz(p) for p in _cut(text, cuts))
+    if case == "empty_members":
+        return b"".join(_gz(p) for p in [
+            b"", *_cut(text, cuts[:3]), b"", b"", *_cut(text, cuts[3:6]), b""])
+    if case == "bgzf":
+        return _bgzf(text2)
+    assert case == "false_header_stored"
+    # a stored member, beyond the decoder's first 1 MiB window a line
+    # holding a false gzip header (not UTF-8, so both decoders skip it),
+    # then level-1 members
+    at = text2.index(b"\n@", 1_100_000) + 1
+    false_line = b"\x1f\x8b\x08\x00 not a member \xff\n"
+    return _stored(text2[:at] + false_line + text2[at:]) + b"".join(
+        _gz(p) for p in _cut(text, _record_cuts(text, 1500)))
+
+
+def _stream(mod, path, quals: bool, n: int):
+    """Every chunk as bytes, then the error text (None at a clean end)."""
+    it = (mod.iter_flat_with_quals_native(str(path), n) if quals
+          else mod.iter_read_chunks_native(str(path), n))
+    got = []
+    try:
+        for c in it:
+            got.append(tuple(a.tobytes() for a in c))
+    except IOError as e:
+        return got, str(e)
+    return got, None
+
+
+@pytest.mark.parametrize("n", [7, 500, 100_000])
+@pytest.mark.parametrize("quals", [False, True], ids=["seqs", "quals"])
+@pytest.mark.parametrize("case", ["one_member", "members_beyond_workers",
+                                  "cut_inside_lines", "empty_members", "bgzf",
+                                  "false_header_stored"])
+def test_members_match_jax(tmp_path, rng, jax_native, case, quals, n):
+    """Multi-member gzip files decode to the chunks the JAX package's
+    decoder (one gzread) gives, exactly."""
+    jfq, _ = jax_native
+    blob = _member_file(rng, case)
+    path = tmp_path / f"{case}.fastq.gz"
+    path.write_bytes(blob)
+    got = _stream(fastq_native, path, quals, n)
+    assert got[1] is None and got[0]
+    assert got == _stream(jfq, path, quals, n)
+
+
+def _broken_files(rng) -> dict[str, bytes]:
+    text = _fastq_text(rng, 2500)  # ~370 kB a member
+    members = [_gz(text) for _ in range(6)]
+    crc = bytearray(members[3])
+    crc[-8] ^= 1  # the member's CRC32
+    data = bytearray(members[3])
+    data[len(data) // 2] ^= 0x10
+    return {
+        "truncated_last": b"".join(members)[:-len(members[5]) // 2],
+        "bad_crc_middle": b"".join(members[:3] + [bytes(crc)] + members[4:]),
+        "bad_data_middle": b"".join(members[:3] + [bytes(data)]
+                                    + members[4:]),
+        "trailing_garbage": b"".join(members) + b"\0\0 not gzip \x1f\x8b",
+        "trailing_magic_byte": b"".join(members) + b"\x1f",
+        "trailing_bad_header": b"".join(members) + b"\x1f\x8b\x09\0",
+        "truncated_header": b"".join(members) + b"\x1f\x8b\x08",
+    }
+
+
+@pytest.mark.parametrize("quals", [False, True], ids=["seqs", "quals"])
+@pytest.mark.parametrize("case", ["truncated_last", "bad_crc_middle",
+                                  "bad_data_middle", "trailing_garbage",
+                                  "trailing_magic_byte",
+                                  "trailing_bad_header", "truncated_header"])
+def test_member_errors_match_jax(tmp_path, rng, jax_native, case, quals):
+    """A broken multi-member file gives the chunks before the error and the
+    error text of the JAX package's decoder; bytes after the last member
+    that are not a gzip header are ignored, as gzread ignores them."""
+    jfq, _ = jax_native
+    path = tmp_path / f"{case}.fastq.gz"
+    path.write_bytes(_broken_files(rng)[case])
+    got = _stream(fastq_native, path, quals, 1000)
+    assert got == _stream(jfq, path, quals, 1000)
+    clean = case in ("trailing_garbage", "trailing_magic_byte")
+    assert (got[1] is None) == clean
+    assert got[0]  # the chunks before the broken member
+
+
+def _counted(path, n: int = 50) -> dict[str, int]:
+    """Drain a file with the recorder on, the consumer pausing after its
+    first chunk so that the workers claim what lies ahead."""
+    spans.start()
+    try:
+        it = fastq_native.iter_read_chunks_native(str(path), n)
+        next(it)
+        time.sleep(0.2)
+        for _ in it:
+            pass
+    finally:
+        counters = spans.stop().counters
+    return {k: v for k, v in counters.items() if k.startswith("fastq.")}
+
+
+def _members(blob: bytes) -> int:
+    n = pos = 0
+    while pos < len(blob):
+        d = zlib.decompressobj(31)
+        d.decompress(blob[pos:])
+        pos = len(blob) - len(d.unused_data)
+        n += 1
+    return n
+
+
+def test_member_counters_reach_the_recorder(tmp_path, rng, port_native):
+    """``fastq.members``, ``fastq.members_ahead`` and
+    ``fastq.split_rejected`` from a closed reader; none for a plain file."""
+    pool = int(len(os.sched_getaffinity(0)) >= 2)  # else no worker pool
+    for case in ("members_beyond_workers", "one_member",
+                 "false_header_stored"):
+        blob = _member_file(rng, case)
+        path = tmp_path / f"{case}.fastq.gz"
+        path.write_bytes(blob)
+        c = _counted(path)
+        assert c["fastq.members"] == _members(blob), case
+        if case == "one_member":
+            assert c["fastq.members_ahead"] == 0
+            assert c["fastq.split_rejected"] == 0
+        else:
+            assert c["fastq.members_ahead"] >= pool
+    assert c["fastq.split_rejected"] >= pool  # the false header's
+    plain = tmp_path / "plain.fastq"
+    plain.write_bytes(_fastq_text(rng, 100))
+    assert _counted(plain) == {}
+
+
+def test_concurrent_member_readers_agree(tmp_path, rng, jax_native):
+    """More readers at once than cores share the process's worker slots:
+    each gives the JAX decoder's chunks, and every slot comes back."""
+    jfq, _ = jax_native
+    path = tmp_path / "members.fastq.gz"
+    path.write_bytes(_member_file(rng, "members_beyond_workers"))
+    want = _stream(jfq, path, True, 333)
+    got = [None] * (2 * (os.cpu_count() or 1) + 2)
+
+    def read(i):
+        got[i] = _stream(fastq_native, path, i % 2 == 0, 333)
+
+    threads = [threading.Thread(target=read, args=(i,))
+               for i in range(len(got))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+        assert not th.is_alive(), "a reader hung"
+    seqs = [tuple(c[:2]) for c in want[0]]
+    for i, g in enumerate(got):
+        assert g == (want if i % 2 == 0 else (seqs, None))
+    if len(os.sched_getaffinity(0)) >= 2:  # the slots were all given back
+        assert _counted(path)["fastq.members_ahead"] >= 1
+
+
 def test_missing_file(jax_native):
     for fn in (fastq_native.iter_reads_native,
                fastq_native.iter_reads_with_quals_native):
@@ -238,25 +463,43 @@ def big_lane(tmp_path, rng):
     return path
 
 
-@pytest.mark.parametrize("how", ["break", "prefetch"])
-def test_an_early_stop_closes_the_reader(big_lane, port_native, how):
+@pytest.fixture
+def member_lane(tmp_path, rng):
+    """300 gzip members of 50 reads, 2.2 MB: beyond the decoder's first
+    1 MiB window lie more members than it claims ahead, so its workers
+    block too."""
+    text = _fastq_text(rng, 15_000)
+    path = str(tmp_path / "members.fastq.gz")
+    with open(path, "wb") as f:
+        f.writelines(_gz(p) for p in _cut(text, _record_cuts(text, 50)))
+    return path
+
+
+@pytest.mark.parametrize("how", ["break", "prefetch", "break_members",
+                                 "prefetch_members"])
+def test_an_early_stop_closes_the_reader(big_lane, member_lane, port_native,
+                                         how):
     """A consumer that stops after one chunk, by ``break`` or by leaving
     ``prefetch``, reaches ``fq_close``: the worker, blocked on a full queue,
-    is stopped and joined, and nothing deadlocks."""
+    is stopped and joined, with every thread inflating members ahead, and
+    nothing deadlocks."""
     if not os.path.isdir("/proc/self/task"):
         pytest.skip("counts threads through /proc")
+    path = member_lane if how.endswith("_members") else big_lane
     before = _threads()
 
     def consume():
-        if how == "break":
-            it = fastq.iter_flat_chunks(big_lane, 10, engine="native")
+        if how.startswith("break"):
+            it = fastq.iter_flat_chunks(path, 10, engine="native")
             for _ in it:
                 break
+            time.sleep(0.1)  # the workers claim what they can
             it.close()
         else:
             with fastq.prefetch(fastq.iter_flat_chunks(
-                    big_lane, 10, engine="native")) as chunks:
+                    path, 10, engine="native")) as chunks:
                 next(chunks)
+                time.sleep(0.1)
 
     t = threading.Thread(target=consume)
     t.start()

@@ -83,7 +83,10 @@ def test_spans_of_the_chunk_path_nest_and_add_up(tmp_path, rng, recorder):
     rec = recorder.stop()
     n_chunks = -(-17 // CHUNK_READS)
     assert res.chunks == n_chunks >= 3
-    assert rec.counters == {"fastq.chunks": n_chunks}
+    # the lane is one gzip member, which the reader inflates itself
+    assert rec.counters == {"fastq.chunks": n_chunks, "fastq.members": 1,
+                            "fastq.members_ahead": 0,
+                            "fastq.split_rejected": 0}
     main = threading.get_native_id()
     by_id = {s.id: s for s in rec.spans}
     (root,) = [s for s in rec.spans if s.name == "align.file"]
@@ -161,7 +164,9 @@ def test_spans_sit_in_the_profiler_trace(tmp_path, rng, recorder):
         assert e["ts"] + e["dur"] <= root["ts"] + root["dur"] + slack
     counters = {e["name"]: e["args"]["value"] for e in events
                 if e.get("ph") == "C"}
-    assert counters == {"fastq.chunks": -(-17 // CHUNK_READS)}
+    assert counters == {"fastq.chunks": -(-17 // CHUNK_READS),
+                        "fastq.members": 1, "fastq.members_ahead": 0,
+                        "fastq.split_rejected": 0}
 
 
 def test_variant_prep_job_records_its_stages_in_order(tmp_path, recorder):
