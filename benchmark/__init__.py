@@ -2,7 +2,8 @@
 ``BENCHMARK.json`` and the data files under this folder.
 
 ``python -m benchmark.run --workload <cell> --seed <n> --seconds <s>
---trace <0|1>`` runs one cell once on the card it is started on (run.py).
+--trace <0|1>`` runs one cell once on the card it is started on (run.py),
+or a cell on several chips as one process a card (ranks.py).
 A cell names a configuration (``configs/<config>.json``, whose ``entry``
 names ``entries/<entry>.py``) and a traffic mix (``traffic/<mix>.json``,
 read by the one generator in traffic.py); each per-layer metric is a

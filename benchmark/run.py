@@ -20,8 +20,20 @@ every job. The last line of standard output is one JSON object; the
 numbers compared, each beside its limit, are the last lines of standard
 error and the last key of that object.
 
+A cell on N > 1 chips runs as N processes, one a card (ranks.py): rank 0
+is this process on ``cuda:0`` and generates the inputs, ranks 1 .. N-1 are
+started in set-up and kept for the run. Every rank builds
+``Entry(..., rank=r, world=N)`` and runs its part of each job; a job's wall
+runs from the command to the last rank's answer, and ``Entry.merge`` puts
+the ranks' answers together for the reads, the chunks and ``correct``.
+Each card is read: its trace (``busy_s`` and ``window_s``, and the
+``breakdown``, summed over the cards), its kernels' device time (summed)
+and its peak memory (the fullest card's). A rank that raises, ends or
+gives no answer in time fails the job, as a failed job of one card does.
+
 Exits 2 without the CUDA cards the cell asks for and 3 when JAX or the JAX
-package got loaded, printing no result in either case.
+package got loaded, in this process or a rank's, printing no result in
+either case.
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import contextlib  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -51,9 +64,14 @@ CACHE = ROOT / ".bench_cache"  # fixed, inside the checkout
 class Context:
     """What a per-layer metric reader reads (metrics/<name>.py)."""
 
-    trace: object = None  # trace.Trace of the traced job
+    trace: object = None  # trace.Trace of the traced job (rank 0's)
     traced: dict = field(default_factory=dict)  # its reads, chunks, wall
     jobs: list = field(default_factory=list)  # untraced: wall, reads, spans
+    # on N > 1 chips: a row of each rank's own (rank, wall, reads, chunks,
+    # spans) in ``jobs``, and of the traced job, by rank, in
+    # ``traced_by_rank``; every rank's trace by rank in ``traces``
+    traces: dict = field(default_factory=dict)
+    traced_by_rank: list = field(default_factory=list)
     decode_s: float | None = None
     card: dict | None = None  # peaks.json's entry for the card
     cells: int | None = None  # DP cells the traced job's reads need
@@ -107,45 +125,69 @@ def forbidden_modules() -> list[str]:
 
 
 def run_cell(parts: dict, seed: int, seconds: float, trace: bool, device,
-             t_start: float = T_START) -> dict:
-    """One run of a resolved cell (:func:`resolve`) on ``device``; -> (the
-    result object, the wall seconds of each untraced job)."""
+             t_start: float = T_START, limit_s: float | None = None):
+    """One run of a resolved cell (:func:`resolve`) on ``device``, a cell
+    on N > 1 chips as N processes from ``device`` on (ranks.py, whose wait
+    for a job's answers ``limit_s`` replaces); -> (the result object, the
+    wall seconds of each untraced job, the JAX modules a rank process
+    loaded)."""
     import torch
 
     from benchmark import card, traffic
     from benchmark import trace as tracing
+    from benchmark.ranks import Ranks, gather
 
     config = parts["config"]
+    world = parts["cell"]["chips"]
     entry_mod = load_file(parts["entry"], f"benchmark_entry_{config['entry']}")
     on_card = device.type == "cuda"
     ends = {m["name"] for m in parts["end_to_end"]}
     card_time = on_card and not trace and "card_ms_per_mreads" in ends
-    with tempfile.TemporaryDirectory(prefix="benchmark-") as work:
+    profiler = ("cpu+cuda" if trace and on_card
+                else "cuda" if card_time else None)
+    with tempfile.TemporaryDirectory(prefix="benchmark-") as work, \
+            contextlib.ExitStack() as stack:
         inputs = traffic.generate(config["sample"], parts["traffic"], seed,
                                   os.path.join(work, "inputs"))
-        entry = entry_mod.Entry(config, inputs, device, seed)
-        if trace and on_card:
-            tracing.warm_profiler()
-        elif card_time:
-            tracing.warm_profiler(cpu=False)
-        entry.job(os.path.join(work, "warm"))
-        shutil.rmtree(os.path.join(work, "warm"))
+        ranks = None
+        if world > 1:  # its processes start while rank 0 builds its entry
+            ranks = stack.enter_context(
+                Ranks(parts, inputs, device, seed, profiler))
+            entry = entry_mod.Entry(config, inputs, device, seed, rank=0,
+                                    world=world)
+        else:
+            entry = entry_mod.Entry(config, inputs, device, seed)
+        if profiler:
+            tracing.warm_profiler(cpu=profiler == "cpu+cuda")
+        if ranks is not None:
+            warm = ranks.warm(entry, os.path.join(work, "warm"), limit_s)
+            per_job = entry.chunks(entry.merge([a["out"] for a in warm]))[0]
+        else:
+            entry.job(os.path.join(work, "warm"))
+            shutil.rmtree(os.path.join(work, "warm"))
         if on_card:
             torch.cuda.synchronize(device)
         setup_s = time.perf_counter() - t_start
 
-        outs, ctx, error = [], Context(), None
+        outs, walls, ctx, error = [], [], Context(), None
         kernel_s, kernels = 0.0, 0
         t0 = time.perf_counter()
         k = 0
         while True:
             jobdir = os.path.join(work, f"job{k}")
+            traced = trace and k == 0
             tj = time.perf_counter()
             try:
-                if trace and k == 0 and on_card:
+                if ranks is not None:
+                    answers = ranks.job(entry, jobdir, (
+                        "trace" if traced and on_card
+                        else "card" if card_time else "plain"))
+                    out = entry.merge([a["out"] for a in answers])
+                elif traced and on_card:
                     out, ctx.trace = tracing.traced(
                         lambda: entry.job(jobdir),
                         os.path.join(work, "trace.json"))
+                    ctx.traces = {0: ctx.trace}
                 elif card_time:
                     out, ks, n = tracing.kernel_seconds(
                         lambda: entry.job(jobdir))
@@ -160,19 +202,50 @@ def run_cell(parts: dict, seed: int, seconds: float, trace: bool, device,
                 break
             wall = time.perf_counter() - tj
             outs.append(out)
-            chunks = entry.chunks(out)
-            if trace and k == 0:
-                ctx.traced = {"reads": entry.reads(out), "chunks": chunks[0],
-                              "wall": wall}
+            if ranks is not None:
+                got = gather(answers)
+                kernel_s += got["kernel_s"]
+                kernels += got["kernels"]
+                rows = [{"rank": r, "wall": a["wall"],
+                         "reads": entry.reads(a["out"]),
+                         "chunks": entry.chunks(a["out"])[0],
+                         "spans": a["out"]["spans"]}
+                        for r, a in enumerate(answers)]
+                if traced:
+                    ctx.traces = got["traces"]
+                    ctx.trace = ctx.traces.get(0)
+                    ctx.traced = {key: rows[0][key]
+                                  for key in ("reads", "chunks", "wall")}
+                    ctx.traced_by_rank = rows
+                else:
+                    ctx.jobs += rows
+            elif traced:
+                ctx.traced = {"reads": entry.reads(out),
+                              "chunks": entry.chunks(out)[0], "wall": wall}
             else:
                 ctx.jobs.append({"wall": wall, "reads": entry.reads(out),
                                  "spans": out["spans"]})
+            if not traced:
+                walls.append(wall)
             k += 1
             if (time.perf_counter() - t0 >= seconds
-                    and (not trace or ctx.jobs)):
+                    and (not trace or walls)):
                 break
         window_s = time.perf_counter() - t0
         peak = (torch.cuda.max_memory_allocated(device) if on_card else 0)
+        loaded = []
+        if ranks is not None:
+            if error is None:
+                reports = ranks.reports()
+                peak = max([peak, *(r["peak"] for r in reports)])
+                loaded = [f"{m} (rank {r})"
+                          for r, rep in enumerate(reports, 1)
+                          for m in rep["loaded"]]
+                for r in range(world):
+                    print(f"rank {r} job walls (s): "
+                          f"{[j['wall'] for j in ctx.jobs if j['rank'] == r]}",
+                          file=sys.stderr)
+            ranks.close(kill=error is not None)
 
         fields = card.card_fields(device)
         metrics: dict = {}
@@ -207,7 +280,8 @@ def run_cell(parts: dict, seed: int, seconds: float, trace: bool, device,
         attempted = sum(entry.chunks(o)[0] for o in outs)
         failed = sum(entry.chunks(o)[1] for o in outs)
         if error is not None:
-            per_job = (entry.chunks(outs[0])[0] if outs else 1)
+            if ranks is None:
+                per_job = (entry.chunks(outs[0])[0] if outs else 1)
             attempted += per_job
             failed += per_job
         if on_card:
@@ -228,13 +302,12 @@ def run_cell(parts: dict, seed: int, seconds: float, trace: bool, device,
         result = {"correct": correct, "attempted": int(attempted),
                   "failed": int(failed), "metrics": metrics,
                   "device": device_field}
-        if trace and ctx.trace is not None:
-            device_field["busy_s"] = ctx.trace.busy_s()
-            device_field["window_s"] = ctx.trace.window_s
-            result["breakdown"] = ctx.trace.breakdown()
+        if trace and ctx.traces:
+            device_field.update(tracing.device_time(ctx.traces.values()))
+            result["breakdown"] = tracing.breakdown(ctx.traces.values())
         result["checks"] = {name: {"value": v, "limit": lim}
                             for name, v, lim in checks}
-        return result, [j["wall"] for j in ctx.jobs]
+        return result, walls, loaded
 
 
 def main(argv=None) -> int:
@@ -256,9 +329,10 @@ def main(argv=None) -> int:
         print(f"benchmark: the cell needs {chips} CUDA card(s); "
               f"{torch.cuda.device_count()} available", file=sys.stderr)
         return 2
-    result, walls = run_cell(parts, args.seed, args.seconds,
-                             bool(args.trace), torch.device("cuda", 0))
-    bad = forbidden_modules()
+    result, walls, loaded = run_cell(parts, args.seed, args.seconds,
+                                     bool(args.trace),
+                                     torch.device("cuda", 0))
+    bad = forbidden_modules() + loaded
     if bad:
         print(f"benchmark: loaded {', '.join(bad)}", file=sys.stderr)
         return 3

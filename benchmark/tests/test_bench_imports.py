@@ -10,7 +10,9 @@ from benchmark import run
 
 HARNESS = """
 import json, sys
-from benchmark import run, traffic, trace, card, work, control
+from benchmark import run, traffic, trace, card, work, control, ranks
+from benchmark.tests import tiny
+run.load_file(tiny.RANK_ENTRY, "rank_entry")
 spec = run.load_spec()
 for w in spec["workloads"]:
     parts = run.resolve(spec, w["name"])
@@ -19,6 +21,7 @@ for w in spec["workloads"]:
         run.metric_reader(m["name"])
 from mini_parallel_tpu_torch.models import alignment, variant_prep, wgs
 from mini_parallel_tpu_torch.io import fasta, fastq
+from mini_parallel_tpu_torch.parallel import distributed
 print(json.dumps(sorted(sys.modules)))
 """
 

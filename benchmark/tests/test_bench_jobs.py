@@ -54,6 +54,21 @@ def test_main_refuses_without_the_cards(monkeypatch, capsys):
     assert out.out == "" and "CUDA" in out.err
 
 
+def test_main_refuses_four_chips_on_one_card(monkeypatch, capsys):
+    import torch
+
+    spec = run.load_spec()
+    cell = dict(spec["workloads"][0], name="four_chips", chips=4)
+    spec["workloads"].append(cell)
+    monkeypatch.setattr(run, "load_spec", lambda: spec)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert run.main(["--workload", "four_chips", "--seed", "1",
+                     "--seconds", "1", "--trace", "0"]) == 2
+    out = capsys.readouterr()
+    assert out.out == "" and "4 CUDA card(s); 1 available" in out.err
+
+
 @pytest.mark.cuda
 def test_tiny_run_on_the_card(cuda_device):
     for workload in ("wgs_sw.lanes_gz", "ecoli_prep.isolate_30x"):

@@ -1,11 +1,13 @@
 """BENCHMARK.json: its shape, and every cell resolving to its files."""
 
+import inspect
 import json
 import re
 
 import pytest
 
 from benchmark import run
+from benchmark.tests.tiny import RANK_ENTRY
 
 SPEC = run.load_spec()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -33,7 +35,29 @@ def test_cell_resolves_to_its_files(cell):
     ends = {m["name"] for m in parts["end_to_end"]}
     assert "setup_s" in ends and len(ends) >= 2
     assert {m["moves"] for m in parts["per_layer"]} <= ends
-    assert parts["cell"]["chips"] == 1
+    assert parts["cell"]["chips"] in (1, 4)
+    if parts["cell"]["chips"] > 1:
+        assert runs_on_ranks(parts["entry"])
+
+
+def runs_on_ranks(entry_path) -> bool:
+    """Whether an entry can run a cell on several chips (ranks.py): its
+    ``Entry`` takes ``rank`` and ``world`` and defines ``merge``."""
+    entry = run.load_file(entry_path, "spec_" + entry_path.stem).Entry
+    params = inspect.signature(entry.__init__).parameters
+    return {"rank", "world"} <= set(params) and callable(
+        getattr(entry, "merge", None))
+
+
+def test_the_rule_for_entries_on_several_chips():
+    assert runs_on_ranks(RANK_ENTRY)
+    assert not runs_on_ranks(run.HERE / "entries" / "full_wgs.py")
+
+
+def test_few_cells_ask_for_four_chips():
+    cells = SPEC["workloads"]
+    four = sum(w["chips"] == 4 for w in cells)
+    assert four <= max(1, len(cells) // 4)
 
 
 def test_names_units_and_references():

@@ -2,12 +2,14 @@
 samples)."""
 
 import copy
+from pathlib import Path
 
 import torch
 
 from benchmark import run
 
 CPU = torch.device("cpu")
+RANK_ENTRY = Path(__file__).resolve().parent / "rank_entry.py"
 
 
 def tiny(workload: str) -> dict:
@@ -25,6 +27,26 @@ def tiny(workload: str) -> dict:
         if parts["traffic"]["variants"]:
             parts["traffic"]["variants"].update(snps=60, deletions=8,
                                                 insertions=8)
+    return parts
+
+
+def on_ranks(parts: dict, world: int, fault: dict | None = None) -> dict:
+    """A resolved ``wgs_sw`` cell on ``world`` chips through the test entry
+    rank_entry.py (the port's multi-process ``--full-wgs``), with the test
+    entry's ``fault``."""
+    parts = copy.deepcopy(parts)
+    parts["cell"].update(name=f"{parts['cell']['name']}.ranks{world}",
+                         chips=world)
+    parts["entry"] = RANK_ENTRY
+    parts["config"].update(entry=RANK_ENTRY.stem, fault=fault)
+    return parts
+
+
+def tiny_ranks(world: int, files: int, fault: dict | None = None) -> dict:
+    """``wgs_sw.lanes_gz`` cut as :func:`tiny` cuts it, with ``files``
+    lanes of 300 reads, on ``world`` chips (:func:`on_ranks`)."""
+    parts = on_ranks(tiny("wgs_sw.lanes_gz"), world, fault)
+    parts["config"]["sample"].update(lanes=files, reads_per_lane=1)
     return parts
 
 

@@ -109,21 +109,53 @@ class Trace:
             out.append(outer if outer == inner else f"{outer} > {inner}")
         return out
 
-    def breakdown(self) -> dict:
-        """The device operations that took most time, and the longest idle
-        gaps by what the host was doing in the middle of each."""
+    def op_seconds(self) -> dict[str, float]:
+        """The device time of each device operation's name."""
         by_op: dict[str, float] = {}
         for n, _, _, d in self.device:
             by_op[n] = by_op.get(n, 0.0) + d
-        ops = sorted(by_op.items(), key=lambda kv: -kv[1])[:TOP]
+        return by_op
+
+    def gap_seconds(self) -> dict[str, float]:
+        """The idle seconds of the window by what the host was doing in
+        the middle of each gap."""
         by_gap: dict[str, float] = {}
         gaps = self.gaps()
         for (a, b), label in zip(gaps, self.host_labels(
                 [(a + b) / 2 for a, b in gaps])):
             by_gap[label] = by_gap.get(label, 0.0) + (b - a)
-        gaps = sorted(by_gap.items(), key=lambda kv: -kv[1])[:TOP]
-        return {"device_ops": [[n, s] for n, s in ops],
-                "idle_gaps": [[n, s] for n, s in gaps]}
+        return by_gap
+
+    def breakdown(self) -> dict:
+        return breakdown([self])
+
+
+def _summed(tables) -> list[list]:
+    """The ``TOP`` largest entries of the name-to-seconds ``tables``,
+    each name's seconds summed over the tables."""
+    total: dict[str, float] = {}
+    for table in tables:
+        for name, s in table.items():
+            total[name] = total.get(name, 0.0) + s
+    return [[n, s] for n, s in
+            sorted(total.items(), key=lambda kv: -kv[1])[:TOP]]
+
+
+def breakdown(traces) -> dict:
+    """The device operations that took most time, and the longest idle
+    gaps by what the host was doing in the middle of each, each name's
+    seconds summed over ``traces`` (one a card)."""
+    traces = list(traces)
+    return {"device_ops": _summed(t.op_seconds() for t in traces),
+            "idle_gaps": _summed(t.gap_seconds() for t in traces)}
+
+
+def device_time(traces) -> dict:
+    """``busy_s`` and ``window_s`` summed over ``traces`` (one a card), so
+    that 1 - busy_s / window_s is the cards' mean idle share."""
+    traces = list(traces)
+    return {"busy_s": sum(t.busy_s() for t in traces),
+            "window_s": sum(t.window_s for t in traces)}
 
 
 KERNEL_ACTIVITY = 5  # libkineto's ActivityType::CONCURRENT_KERNEL
