@@ -9,6 +9,13 @@ of totals. The counterpart of mini_parallel_tpu/parallel/distributed.py.
 - totals merge with one ``torch.distributed`` all-gather over gloo at the
   end of the run: per-chunk work never crosses processes.
 
+Spans (utils/spans.py): ``wgs.dist.sizes`` (the file sizes agreed, their
+all-gather), ``wgs.dist.plan``, ``wgs.dist.stripe`` (each shared file's
+stripe) and ``wgs.dist.merge`` (the totals' all-gathers, where a process
+waits for the slowest); counters ``wgs.dist.files`` (this process's
+exclusive files), ``wgs.dist.shared`` and ``wgs.dist.planned_bytes`` (its
+files' bytes and its stripes' share of the shared files').
+
 A single process degenerates to the local path, so everything here is
 testable without a process group.
 """
@@ -31,6 +38,7 @@ from mini_parallel_tpu_torch.parallel.mesh import (
     process_count,
     process_index,
 )
+from mini_parallel_tpu_torch.utils import spans
 from mini_parallel_tpu_torch.utils.checkpoint import (
     CheckpointState,
     FileCheckpoint,
@@ -143,9 +151,10 @@ def _stat_size(path: str) -> int:
 def _agreed_sizes(files: list[str], nproc: int) -> dict[str, int]:
     """File sizes every process agrees on: process 0's stats, adopted by
     all (a per-process stat divergence would split the plan)."""
-    local = np.array([max(_stat_size(f), 1) for f in files], np.int64)
-    if nproc > 1 and process_count() > 1:
-        local = _all_gather(local)[0]
+    with spans.span("wgs.dist.sizes"):
+        local = np.array([max(_stat_size(f), 1) for f in files], np.int64)
+        if nproc > 1 and process_count() > 1:
+            local = _all_gather(local)[0]
     return dict(zip(files, (int(x) for x in local)))
 
 
@@ -212,8 +221,15 @@ def process_full_wgs_distributed(
     initialize_distributed()  # idempotent; the CLI already ran it
     pid, nproc = process_index(), process_count()
     files = cfg.wgs_file_list() if cfg else engine.cfg.wgs_file_list()
-    plan = plan_work(files, nproc, sizes=_agreed_sizes(files, nproc))
+    sizes = _agreed_sizes(files, nproc)
+    with spans.span("wgs.dist.plan"):
+        plan = plan_work(files, nproc, sizes=sizes)
     my_files = plan.exclusive[pid] if pid < len(plan.exclusive) else []
+    spans.count("wgs.dist.files", len(my_files))
+    spans.count("wgs.dist.shared", len(plan.shared))
+    spans.count("wgs.dist.planned_bytes",
+                sum(sizes[f] for f in my_files)
+                + sum(sizes[f] for f in plan.shared) // nproc)
     echo(f"[host {pid}/{nproc}] processing {len(my_files)}/{len(files)} "
          f"files exclusively"
          + (f" + {len(plan.shared)} shared (chunk-strided)"
@@ -250,8 +266,10 @@ def process_full_wgs_distributed(
             continue
         echo(f"[host {pid}/{nproc}] shared file {path}: "
              f"chunks {pid}::{nproc}")
-        res = _stripe_with_retries(engine, path, pid, nproc, retries, echo,
-                                   state=stripe_state, file_index=si)
+        with spans.span("wgs.dist.stripe"):
+            res = _stripe_with_retries(engine, path, pid, nproc, retries,
+                                       echo, state=stripe_state,
+                                       file_index=si)
         stripe_state.add_file_result(FileCheckpoint(
             file_path=path, file_index=si, score=res.score,
             processing_time_ms=res.seconds * 1000.0,
@@ -267,7 +285,8 @@ def process_full_wgs_distributed(
         bases=sum(r.total_bases for r in results),
         score=sum(r.score for r in results),
         seconds_max=sum(r.seconds for r in results))
-    merged = merge_totals(local)
+    with spans.span("wgs.dist.merge"):
+        merged = merge_totals(local)
     if pid == 0 and nproc > 1:
         echo(f"[global] files={merged.files} reads={merged.reads} "
              f"bases={merged.bases} score={merged.score}")

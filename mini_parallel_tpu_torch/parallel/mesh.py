@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import atexit
 import os
+import warnings
 from datetime import timedelta
 
 import numpy as np
@@ -147,9 +148,11 @@ def initialize_distributed() -> bool:
     where they are unset, torchrun's ``WORLD_SIZE`` and ``RANK``. A rank or
     world size that neither names is an error. The group is gloo: every
     value that crosses processes is a host array (``distributed.py``).
-    Each process then selects ``cuda:(LOCAL_RANK or rank % device_count)``
-    when CUDA is available. The group is destroyed at the interpreter's
-    exit. Idempotent.
+    Each process then selects its card (:func:`local_card`) when CUDA is
+    available, and where several processes share the node
+    (``LOCAL_WORLD_SIZE`` > 1) caps torch's CPU threads at its share of
+    the CPUs (:func:`cpu_share`). The group is destroyed at the
+    interpreter's exit. Idempotent.
     """
     coord = os.environ.get("JAX_COORDINATOR_ADDRESS")
     if not coord:
@@ -168,15 +171,49 @@ def initialize_distributed() -> bool:
     rank, world = int(pid), int(nproc)
     if not 0 <= rank < world:
         raise ValueError(f"process id {rank} outside a world of {world}")
+    card = (local_card(rank, torch.cuda.device_count())
+            if torch.cuda.is_available() else None)
     init = coord if "://" in coord else f"tcp://{coord}"
     dist.init_process_group("gloo", init_method=init, world_size=world,
                             rank=rank, timeout=timedelta(minutes=30))
     atexit.register(_destroy_group)
-    if torch.cuda.is_available():
-        local = os.environ.get("LOCAL_RANK")
-        torch.cuda.set_device(int(local) if local
-                              else rank % torch.cuda.device_count())
+    if card is not None:
+        torch.cuda.set_device(card)
+    share = cpu_share()
+    if share is not None and torch.get_num_threads() > share:
+        torch.set_num_threads(share)
     return True
+
+
+def local_card(rank: int, cards: int) -> int:
+    """The card of process ``rank`` among the ``cards`` visible:
+    ``LOCAL_RANK``, or ``rank % cards`` where it is unset. A ``LOCAL_RANK``
+    beyond the visible cards is a ValueError; where the node's processes
+    (``LOCAL_WORLD_SIZE``) outnumber its cards, rank 0 warns that they
+    share one."""
+    local = os.environ.get("LOCAL_RANK")
+    card = int(local) if local else rank % cards
+    if not 0 <= card < cards:
+        raise ValueError(f"LOCAL_RANK {card} names a card beyond the "
+                         f"{cards} CUDA card(s) visible")
+    procs = int(os.environ.get("LOCAL_WORLD_SIZE") or 1)
+    if procs > cards and rank == 0:
+        warnings.warn(f"{procs} processes of this node share its {cards} "
+                      f"CUDA card(s)", stacklevel=2)
+    return card
+
+
+def cpu_share(cpus: int | None = None) -> int | None:
+    """The CPUs each process of this node may take: ``cpus`` (by default
+    those this process may run on) over ``LOCAL_WORLD_SIZE``, at least 1;
+    None where the node runs one process (``LOCAL_WORLD_SIZE`` unset or
+    1)."""
+    procs = int(os.environ.get("LOCAL_WORLD_SIZE") or 1)
+    if procs <= 1:
+        return None
+    if cpus is None:
+        cpus = len(os.sched_getaffinity(0))
+    return max(1, cpus // procs)
 
 
 def _destroy_group() -> None:

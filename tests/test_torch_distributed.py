@@ -5,8 +5,11 @@ mini_parallel_tpu/parallel/distributed.py.
 The work plan (round-robin shards, the size-aware LPT plan with shared
 files), the chunk-strided stripes of a shared file with their owned-chunk
 resume, the stripe retries and their persistent checkpoints, the process
-group's environment contract, and two processes over gloo running the CLI's
---full-wgs, whose merged totals must equal the single-process run's.
+group's environment contract, the card and CPU shares of the processes of
+one node, two processes over gloo running the CLI's --full-wgs, whose
+merged totals must equal the single-process run's, and four processes
+through process_full_wgs_distributed, whose merged totals must equal a
+plain self-score DP over every read, with their ``wgs.dist.*`` spans.
 Every comparison is exact.
 """
 
@@ -15,10 +18,13 @@ import os
 import socket
 import subprocess
 import sys
+import warnings
 
+import numpy as np
 import pytest
 import torch
 
+from benchmark.reference import sw_self
 from mini_parallel_tpu.models.alignment import AlignmentEngine as JAlignment
 from mini_parallel_tpu.parallel import distributed as jdist
 from mini_parallel_tpu.utils.config import Config as JConfig
@@ -26,7 +32,11 @@ from mini_parallel_tpu_torch import cli
 from mini_parallel_tpu_torch.io import fastq
 from mini_parallel_tpu_torch.models.alignment import AlignmentEngine
 from mini_parallel_tpu_torch.parallel import distributed
-from mini_parallel_tpu_torch.parallel.mesh import initialize_distributed
+from mini_parallel_tpu_torch.parallel.mesh import (
+    cpu_share,
+    initialize_distributed,
+    local_card,
+)
 from mini_parallel_tpu_torch.utils.checkpoint import CheckpointState
 from mini_parallel_tpu_torch.utils.config import Config
 from tests.conftest import random_dna
@@ -264,7 +274,10 @@ def test_initialize_distributed_env_contract(monkeypatch, tmp_path):
     for var in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
                 "JAX_PROCESS_ID", "WORLD_SIZE", "RANK"):
         monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")
+    threads = torch.get_num_threads()
     assert initialize_distributed() is False
+    assert torch.get_num_threads() == threads  # no group: no cap
     monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "127.0.0.1:1")
     monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
     with pytest.raises(ValueError, match="rank"):
@@ -277,6 +290,49 @@ def test_initialize_distributed_env_contract(monkeypatch, tmp_path):
     out = []
     assert cli.main(["--full-wgs", "--allow-cpu"], echo=out.append) == 1
     assert out[-1].startswith("ERROR:")
+
+
+# ----------------------------------------------------------------------
+# the processes of one node: their cards and their CPUs
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("procs,share", [
+    (None, None), ("1", None), ("4", 8), ("16", 2), ("64", 1),
+])
+def test_cpu_share_of_a_node(monkeypatch, procs, share):
+    """On a stated 32 CPUs each of LOCAL_WORLD_SIZE processes takes its
+    share for torch's threads; alone (LOCAL_WORLD_SIZE unset or 1) a
+    process takes what it took before (None: no cap)."""
+    if procs is None:
+        monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", procs)
+    assert cpu_share(32) == share
+    if share is not None:
+        assert cpu_share() == max(1, len(os.sched_getaffinity(0))
+                                  // int(procs))
+
+
+def test_local_card(monkeypatch):
+    """LOCAL_RANK, or the rank mod the cards; one beyond the visible cards
+    is an error naming both; rank 0 warns where processes share a card."""
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    assert [local_card(r, 4) for r in range(6)] == [0, 1, 2, 3, 0, 1]
+    monkeypatch.setenv("LOCAL_RANK", "2")
+    assert local_card(7, 4) == 2
+    monkeypatch.setenv("LOCAL_RANK", "4")
+    with pytest.raises(ValueError, match="LOCAL_RANK 4 .* 4 CUDA card"):
+        local_card(0, 4)
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")  # four ranks on one card
+    with pytest.warns(UserWarning, match="4 processes .* 1 CUDA card"):
+        assert local_card(0, 1) == 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert local_card(3, 1) == 0  # only rank 0 says it
+        assert local_card(0, 4) == 0
 
 
 # ----------------------------------------------------------------------
@@ -379,3 +435,115 @@ def test_two_process_full_wgs_over_gloo(tmp_path, rng, lane_reads, shared):
         assert json.loads(row.read_text())["monitor_summary"] == {
             "max_context_switches_per_s": 77.0, "min_free_memory_kb": 4242.0}
     assert sum(local_files) + shared == 4
+
+
+# ----------------------------------------------------------------------
+# four processes of one node through process_full_wgs_distributed
+# ----------------------------------------------------------------------
+
+_RANK = r"""
+import json, os, sys
+import torch
+from mini_parallel_tpu_torch.models.alignment import AlignmentEngine
+from mini_parallel_tpu_torch.parallel import distributed
+from mini_parallel_tpu_torch.parallel.mesh import initialize_distributed
+from mini_parallel_tpu_torch.utils import spans
+from mini_parallel_tpu_torch.utils.config import Config
+
+threads = torch.get_num_threads()
+initialize_distributed()
+cfg = Config(wgs_data_dir=sys.argv[1], sample_id="DP", lanes=int(sys.argv[2]),
+             reads_per_lane=1, chunk_size_reads=5, mode="sw")
+spans.start()
+results, merged = distributed.process_full_wgs_distributed(
+    AlignmentEngine(cfg, mode="sw", device=torch.device("cpu")), cfg,
+    checkpoint_dir=os.getcwd(), echo=lambda *_: None)
+rec = spans.stop()
+names = {s.id: s.name for s in rec.spans}
+json.dump({"threads": [threads, torch.get_num_threads()],
+           "merged": [merged.files, merged.reads, merged.bases, merged.score],
+           "files": [(r.file_path, r.total_reads, r.total_bases, r.score)
+                     for r in results],
+           "spans": [(s.name, names.get(s.parent)) for s in rec.spans],
+           "counters": rec.counters}, open(sys.argv[3], "w"))
+"""
+
+
+@pytest.mark.parametrize("lane_reads,shared", [((8,) * 8, 0),
+                                               ((8, 4, 4, 4, 4, 40), 1)],
+                         ids=["equal", "skewed"])
+def test_four_processes_of_a_node_over_gloo(tmp_path, rng, lane_reads,
+                                            shared):
+    """Four processes of one node (LOCAL_WORLD_SIZE 4), equal lanes and a
+    lane large enough to be striped over all four: every rank's merged
+    totals equal the plain self-score DP's sums over every read, each file
+    counted once; each rank caps torch's threads at its share of the
+    CPUs; and its ``wgs.dist.*`` spans and counters
+    are recorded, a stripe's file spans inside its ``wgs.dist.stripe``."""
+    try:
+        port = _free_port()
+    except OSError as e:
+        pytest.skip(f"cannot bind a local socket: {e}")
+    data = tmp_path / "data"
+    data.mkdir()
+    seqs = []
+    for k, n in enumerate(lane_reads, 1):
+        reads = [random_dna(rng, 100) for _ in range(n)]
+        fastq.write_fastq(str(data / f"DP_L{k:03d}_R1_001.fastq.gz"), reads)
+        seqs.append(np.frombuffer(bytearray(b"".join(reads)),
+                                  np.uint8).reshape(n, 100))
+    script = tmp_path / "rank.py"
+    script.write_text(_RANK)
+    procs = []
+    for pid in range(4):
+        d = tmp_path / f"p{pid}"
+        d.mkdir()
+        env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   JAX_NUM_PROCESSES="4", JAX_PROCESS_ID=str(pid),
+                   LOCAL_RANK=str(pid), LOCAL_WORLD_SIZE="4",
+                   MPT_RESULTS_DIR=str(d / "results"),
+                   PYTHONPATH=os.pathsep.join([REPO] + sys.path))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(script), str(data), str(len(lane_reads)),
+             str(d / "out.json")], cwd=d, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE))
+    try:
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait(timeout=30)
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err.decode(errors="replace")[-3000:]
+    ranks = [json.loads((tmp_path / f"p{pid}" / "out.json").read_text())
+             for pid in range(4)]
+    scores = [int(sw_self.self_scores(s).sum()) for s in seqs]
+    reads = sum(lane_reads)
+    want = [len(lane_reads), reads, 100 * reads, sum(scores)]
+    share = len(os.sched_getaffinity(0)) // 4
+    per_file: dict[str, list[int]] = {}
+    for r in ranks:
+        assert r["merged"] == want
+        before, after = r["threads"]
+        assert after == min(before, max(share, 1))
+        for path, *numbers in r["files"]:
+            acc = per_file.setdefault(os.path.basename(path), [0, 0, 0])
+            per_file[os.path.basename(path)] = [
+                a + b for a, b in zip(acc, numbers)]
+        roots = [n for n, parent in r["spans"] if parent is None
+                 and n.startswith("wgs.dist.")]
+        assert sorted(roots) == sorted(
+            ["wgs.dist.sizes", "wgs.dist.plan", "wgs.dist.merge"]
+            + ["wgs.dist.stripe"] * shared)
+        if shared:
+            assert ["align.file", "wgs.dist.stripe"] in r["spans"]
+        assert r["counters"]["wgs.dist.shared"] == shared
+    # each file once, its stripes summed: the plain DP's reads and scores
+    assert per_file == {f"DP_L{k:03d}_R1_001.fastq.gz": [n, 100 * n, sc]
+                        for k, (n, sc) in enumerate(zip(lane_reads, scores),
+                                                    1)}
+    assert sum(r["counters"]["wgs.dist.files"] for r in ranks) \
+        == len(lane_reads) - shared
+    sizes = [os.path.getsize(f) for f in sorted(data.iterdir())]
+    planned = sum(r["counters"]["wgs.dist.planned_bytes"] for r in ranks)
+    assert sum(sizes) - 4 <= planned <= sum(sizes)
