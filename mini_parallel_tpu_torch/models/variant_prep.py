@@ -143,25 +143,37 @@ class VariantPrepResult:
         return self.mapped_reads / self.total_reads if self.total_reads else 0.0
 
 
-def _seed_keys(codes: np.ndarray, k: int = SEED_K
-               ) -> tuple[np.ndarray, np.ndarray]:
-    """(keys int32, valid) of every k-window of a 1-D code array."""
-    W = codes.shape[0] - k + 1
-    c = codes.astype(np.int32)
-    key = np.zeros(max(W, 0), np.int32)
-    ok = np.ones(max(W, 0), bool)
-    for i in range(k):
-        ci = c[i: i + W]
-        ok &= ci <= 3
-        key = key * 4 + np.where(ci <= 3, ci, 0)
-    return key, ok
+# A window's key with its bases' flags in one int64: bits 0..2k-1 hold its
+# 2-bit base codes, and each base that is not A C G T (N, a pad) sets a bit
+# at _SEED_BAD or above, which the shifts that place a window's k bases
+# (2(k-1) bits at most) never bring below 2^(2k) nor past bit 62.
+_SEED_BAD = 1 << 32
+
+
+def _window_keys(codes: torch.Tensor, k: int = SEED_K) -> torch.Tensor:
+    """Every k-window of a 1-D code tensor -> int64 on its device: the
+    window's key ``sum_m codes[i+m] * 4^(k-1-m)`` where its k bases are all
+    A C G T, _SEED_BAD or more where one is not. Blocks of 1, 2, 4, 8 bases
+    join by shifts, log2(k) passes with no (W, k) temporary; the last join
+    overlaps two blocks and keeps the second's last k - b digits."""
+    w = codes.long()
+    w = torch.where(w <= 3, w, _SEED_BAD)
+    b = 1
+    while 2 * b <= k:
+        w = (w[:-b] << 2 * b) | w[b:]
+        b *= 2
+    r = k - b
+    if r:
+        w = (w[:-r] << 2 * r) | (w[r:] & (((1 << 2 * r) - 1) | -_SEED_BAD))
+    return w
 
 
 class ReferenceIndex:
-    """Sorted seed-k-mer index of a reference sequence (device tensors).
-
-    The keys sort STABLY, so a key's first entry is its first reference
-    occurrence and a left ``searchsorted`` anchors there."""
+    """Sorted seed-k-mer index of a reference sequence (device tensors),
+    built on the device: the keys of every clean k-window, sorted STABLY,
+    so a key's first entry is its first reference occurrence and a left
+    ``searchsorted`` anchors there. Keys arrive in position order, so the
+    index is the one ordering by (key, position)."""
 
     def __init__(self, reference: bytes, device: torch.device,
                  k: int = SEED_K):
@@ -169,13 +181,15 @@ class ReferenceIndex:
         self.reference = reference.upper()
         ref_u8 = np.frombuffer(self.reference, np.uint8)
         self.ref_codes = encode._ASCII_TO_CODE[ref_u8]
-        keys, ok = _seed_keys(self.ref_codes, k)
-        pos = np.nonzero(ok)[0].astype(np.int32)
-        keys = keys[ok]
-        order = np.argsort(keys, kind="stable")
-        self.sorted_keys = torch.from_numpy(keys[order]).to(device)
-        self.sorted_pos = torch.from_numpy(pos[order]).to(device)
         self.ref_ascii_dev = torch.from_numpy(ref_u8.copy()).to(device)
+        # an unclean window sorts after every clean key as 4^k (int32)
+        keys = _window_keys(encode.ascii_to_code(self.ref_ascii_dev), k)
+        keys = keys.clamp_max(4 ** k).to(torch.int32)
+        n_clean = (keys < 4 ** k).sum()
+        keys, order = torch.sort(keys, stable=True)
+        n = int(n_clean)  # the build's one sync
+        self.sorted_keys = keys[:n]
+        self.sorted_pos = order[:n].to(torch.int32)
 
     def __len__(self) -> int:
         return int(self.sorted_keys.shape[0])
@@ -576,6 +590,7 @@ class VariantPrepEngine:
                 self.contig_lengths = np.asarray([len(reference)])
             with spans.span("variant.index"):
                 self.index = ReferenceIndex(reference, self.device)
+                spans.count("variant.index.seeds", len(self.index))
         # the index's device tensors on each shard device of the mesh
         self._shard_index: dict = {}
         self.min_depth = min_depth

@@ -589,6 +589,31 @@ def test_variant_prep_on_the_card_matches_cpu(tmp_path, cuda_device, kw):
         assert moved == [0, 0, 0]
 
 
+def test_reference_index_on_the_card_matches_cpu(cuda_device):
+    """The seed index of a 4.74 Mbp two-contig reference with N runs and
+    IUPAC letters, built on the card, equals the CPU build element for
+    element, and its tensors live on the card."""
+    from mini_parallel_tpu_torch.models import variant_prep as vp
+
+    rng = np.random.default_rng(2024)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    chrom = rng.choice(acgt, 4_641_652)
+    chrom[rng.integers(0, chrom.size, 2000)] = ord("N")
+    chrom[rng.integers(0, chrom.size, 500)] = ord("R")
+    chrom[1_000_000:1_000_300] = ord("N")
+    plasmid = rng.choice(np.frombuffer(b"acgt", np.uint8), 100_000)
+    ref, *_ = vp.concat_contigs({"chr": chrom.tobytes(),
+                                 "plasmid": plasmid.tobytes()})
+    gpu = vp.ReferenceIndex(ref, cuda_device)
+    cpu = vp.ReferenceIndex(ref, torch.device("cpu"))
+    for name in ("sorted_keys", "sorted_pos", "ref_ascii_dev"):
+        g, c = getattr(gpu, name), getattr(cpu, name)
+        assert g.device.type == "cuda" and g.dtype == c.dtype
+        assert torch.equal(g.cpu(), c), name
+    assert np.array_equal(gpu.ref_codes, cpu.ref_codes)
+    assert 4_600_000 < len(gpu) < len(ref)
+
+
 @pytest.mark.parametrize("mode", ["sw-affine", "contiguous"])
 def test_engine_new_modes_on_the_card(tmp_path, cuda_device, mode):
     rng = np.random.default_rng(2)

@@ -196,6 +196,7 @@ def test_variant_prep_job_records_its_stages_in_order(tmp_path, recorder):
     assert starts == sorted(starts)
     by_id = {s.id: s for s in rec.spans}
     assert by_id[first["variant.index"].parent].name == "variant.engine_init"
+    assert rec.counters["variant.index.seeds"] == len(eng.index) > 0
     syncs = [s for s in rec.spans if s.name == "genotype.map.sync"]
     assert len(syncs) == -(-40 // 16)
     assert {by_id[s.parent].name for s in syncs} == {"genotype.remap"}

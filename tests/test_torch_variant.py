@@ -28,6 +28,7 @@ from mini_parallel_tpu_torch.io import fasta, fastq
 from mini_parallel_tpu_torch.models import variant_prep as vp
 from mini_parallel_tpu_torch.ops import encode, packed
 from mini_parallel_tpu_torch.utils.config import Config
+from tests.conftest import random_dna
 
 CPU = torch.device("cpu")
 CHUNK = 128
@@ -333,6 +334,62 @@ def _read_batch(rng, B=40, L=64):
     arr, lens = encode.pad_batch(rows, pad_to=L, pad_value=int(encode.PAD_A))
     codes = encode.ascii_to_code(torch.from_numpy(arr))
     return ref, codes, lens
+
+
+def _iupac_ref(rng) -> bytes:
+    ref = bytearray(random_dna(rng, 3000))
+    for p in rng.integers(0, len(ref), 60):
+        ref[p] = int(rng.choice(np.frombuffer(b"RYKMSWBDHVryk", np.uint8)))
+    return bytes(ref)
+
+
+_INDEX_CASES = {
+    "random": lambda rng: random_dna(rng, 3000),
+    "lowercase": lambda rng: (random_dna(rng, 1000)
+                              + random_dna(rng, 1000).lower()),
+    "n_runs": lambda rng: (random_dna(rng, 400) + b"N" * 30
+                           + random_dna(rng, 500) + b"n" * 14
+                           + random_dna(rng, 300) + b"N"),
+    "iupac": _iupac_ref,
+    "repeat_60mer_x3": lambda rng: (random_dna(rng, 100)
+                                    + random_dna(rng, 60) * 3
+                                    + random_dna(rng, 100)),
+    "exactly_k": lambda rng: random_dna(rng, vp.SEED_K),
+    "k_minus_1": lambda rng: random_dna(rng, vp.SEED_K - 1),
+    "shorter_than_k": lambda rng: random_dna(rng, 10),
+    "all_n": lambda rng: b"N" * 200,
+    "two_contigs": lambda rng: vp.concat_contigs(
+        {"c1": random_dna(rng, 1500), "c2": random_dna(rng, 700).lower()})[0],
+}
+
+
+@pytest.mark.parametrize("case", list(_INDEX_CASES))
+def test_reference_index_matches_jax(case):
+    """The seed index built with torch ops (on the CPU here) equals the JAX
+    package's NumPy build: keys, positions and codes, values and dtypes.
+    Below k - 1 bases the JAX build raises; the port's index is empty."""
+    ref = _INDEX_CASES[case](np.random.default_rng(7))
+    idx = vp.ReferenceIndex(ref, CPU)
+    want_codes = np.asarray(jencode.ascii_to_code(
+        jnp.asarray(np.frombuffer(ref.upper(), np.uint8))))
+    assert idx.ref_codes.dtype == want_codes.dtype
+    np.testing.assert_array_equal(idx.ref_codes, want_codes)
+    if len(ref) < vp.SEED_K - 1:
+        with pytest.raises(TypeError):
+            jvp.ReferenceIndex(ref)
+        for t in (idx.sorted_keys, idx.sorted_pos):
+            assert t.shape == (0,) and t.dtype == torch.int32
+            assert t.device == CPU
+        assert len(idx) == 0
+        return
+    jidx = jvp.ReferenceIndex(ref)
+    for got, want in ((idx.sorted_keys, jidx.sorted_keys),
+                      (idx.sorted_pos, jidx.sorted_pos)):
+        want = np.asarray(want)
+        assert got.device == CPU and got.numpy().dtype == want.dtype
+        np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(idx.ref_codes, jidx.ref_codes)
+    assert len(idx) == len(jidx)
 
 
 def test_map_reads_both_matches_jax(rng):
