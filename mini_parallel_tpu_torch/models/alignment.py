@@ -48,8 +48,7 @@ from mini_parallel_tpu_torch.parallel import collectives
 from mini_parallel_tpu_torch.parallel.mesh import (
     engine_mesh,
     mesh_device,
-    pad_to_shards,
-    shard_batch,
+    put_sharded,
 )
 from mini_parallel_tpu_torch.utils import spans
 from mini_parallel_tpu_torch.utils.config import Config
@@ -145,9 +144,17 @@ class AlignmentEngine:
         # is charged to warmup_seconds instead of drain_seconds
         self._warm_shapes: set = set()
 
+    @property
+    def _read_floor(self) -> int:
+        """The read-width floor: ``cfg.read_pad`` rounded up to a multiple
+        of 4, so that every power-of-two bucket above it packs 4 bases a
+        byte."""
+        return -(-self.cfg.read_pad // 4) * 4
+
     # ------------------------------------------------------------------
-    # 2-bit packed transfer path (ops/packed.py): 4x fewer H2D bytes,
-    # bit-exact (exceptions restore non-ACGT bytes, pads refill from lens)
+    # Read batches cross to the device 2-bit packed (ops/packed.py): 4x
+    # fewer H2D bytes, bit-exact (exceptions restore non-ACGT bytes, pads
+    # refill from lens)
     # ------------------------------------------------------------------
     def _local_scores(self, kind: str, a, b, la, lb) -> torch.Tensor:
         """Per-pair device scores for already-unpacked operands."""
@@ -189,33 +196,10 @@ class AlignmentEngine:
         with spans.span("align.pack"):
             pb = packedmod.pack_batch(arr, lens)
         with spans.span("align.put"):
-            shards = packedmod.put_sharded(pb, self.mesh)
+            shards = put_sharded(pb, self.mesh)
         fn = self._packed_fn(kind, "self")
         with spans.span("align.launch"):
             return collectives.merge_scores([fn(*args) for args in shards])
-
-    def _self_sum(self, kind: str, arr_a: np.ndarray, arr_b: np.ndarray,
-                  len_a: np.ndarray, len_b: np.ndarray) -> torch.Tensor:
-        """Queue the device score sum of an unpacked batch: the rows are
-        padded to the shard count (PAD_A / PAD_B rows of length 0 score 0)
-        and the shards' sums merge. A batch scored against itself goes to
-        the devices once."""
-        n = len(self.mesh.axis_devices())
-        extra = pad_to_shards(max(arr_a.shape[0], 1), n) - arr_a.shape[0]
-        if extra:
-            arr_a = np.pad(arr_a, ((0, extra), (0, 0)),
-                           constant_values=encode.PAD_A)
-            arr_b = np.pad(arr_b, ((0, extra), (0, 0)),
-                           constant_values=encode.PAD_B)
-            len_a, len_b = (np.pad(np.asarray(x, np.int32), (0, extra))
-                            for x in (len_a, len_b))
-        if arr_b is arr_a and len_b is len_a:
-            return collectives.merge_scores(
-                [self._local_scores(kind, a, a, la, la).sum() for a, la in
-                 shard_batch(self.mesh, (arr_a, len_a))])
-        return collectives.merge_scores(
-            [self._local_scores(kind, *shard).sum() for shard in
-             shard_batch(self.mesh, (arr_a, arr_b, len_a, len_b))])
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
@@ -231,29 +215,23 @@ class AlignmentEngine:
         pad = _bucket(
             max(max((len(r) for r in reads_a), default=1),
                 max((len(r) for r in reads_b), default=1)),
-            floor=self.cfg.read_pad,
+            floor=self._read_floor,
         )
         check_device_budget(2 * len(reads_a) * pad, self.device)
         arr_a, len_a = encode.pad_batch(reads_a, pad_to=pad, pad_value=int(encode.PAD_A))
         arr_b, len_b = encode.pad_batch(reads_b, pad_to=pad, pad_value=int(encode.PAD_B))
-        return self._score_pair_arrays(arr_a, len_a, arr_b, len_b, pad, defer)
+        return self._score_pair_arrays(arr_a, len_a, arr_b, len_b, defer)
 
-    def _score_pair_arrays(self, arr_a, len_a, arr_b, len_b, pad, defer):
-        if self.cfg.packed_transfer and pad % 4 == 0:
-            pa = packedmod.pack_batch(arr_a, len_a)
-            pb = packedmod.pack_batch(arr_b, len_b)
-            fn = self._packed_fn(self.mode, "pair")
-            # each shard's scores, gathered in row order; the pad rows past
-            # B are cut off
-            out = collectives.concat_rows([
-                fn(*sa, *sb)
-                for sa, sb in zip(packedmod.put_sharded(pa, self.mesh),
-                                  packedmod.put_sharded(pb, self.mesh))
-            ])[:pa.batch]
-        else:
-            out = self._local_scores(
-                self.mode, self._to_device(arr_a), self._to_device(arr_b),
-                self._to_device(len_a), self._to_device(len_b))
+    def _score_pair_arrays(self, arr_a, len_a, arr_b, len_b, defer):
+        pa = packedmod.pack_batch(arr_a, len_a)
+        pb = packedmod.pack_batch(arr_b, len_b)
+        fn = self._packed_fn(self.mode, "pair")
+        # each shard's scores, gathered in row order; the pad rows past B
+        # are cut off
+        out = collectives.concat_rows([
+            fn(*sa, *sb) for sa, sb in zip(put_sharded(pa, self.mesh),
+                                           put_sharded(pb, self.mesh))
+        ])[:pa.batch]
         return out if defer else out.cpu().numpy()
 
     def _score_flat_pairs(self, f1, o1, f2, o2) -> torch.Tensor:
@@ -261,13 +239,13 @@ class AlignmentEngine:
         as score_read_batch, no per-read Python objects)."""
         m1 = int(np.diff(o1).max()) if len(o1) > 1 else 1
         m2 = int(np.diff(o2).max()) if len(o2) > 1 else 1
-        pad = _bucket(max(m1, m2), floor=self.cfg.read_pad)
+        pad = _bucket(max(m1, m2), floor=self._read_floor)
         check_device_budget(2 * (len(o1) - 1) * pad, self.device)
         arr_a, la = encode.pad_batch_flat(
             f1[: int(o1[-1])], o1, pad_to=pad, pad_value=int(encode.PAD_A))
         arr_b, lb = encode.pad_batch_flat(
             f2[: int(o2[-1])], o2, pad_to=pad, pad_value=int(encode.PAD_B))
-        return self._score_pair_arrays(arr_a, la, arr_b, lb, pad, True)
+        return self._score_pair_arrays(arr_a, la, arr_b, lb, True)
 
     def _concat_kind(self) -> str:
         return "contiguous" if self.mode == "contiguous" else "kadane"
@@ -433,11 +411,7 @@ class AlignmentEngine:
                     batch, pad_to=pad, pad_value=int(encode.PAD_A))
             kind = self._concat_kind()
             key = ("concat", kind, pad, len(batch))
-            if self.cfg.packed_transfer and pad % 4 == 0:
-                return warm(key, self._packed_self_sum(kind, arr, lens))
-            with spans.span("align.launch"):
-                val = self._self_sum(kind, arr, arr, lens, lens)
-            return warm(key, val)
+            return warm(key, self._packed_self_sum(kind, arr, lens))
 
         def skip_failed(e: Exception):
             # reference semantics (aligner.rs:284-287): log the per-chunk
@@ -510,7 +484,7 @@ class AlignmentEngine:
         file's stream)."""
         with spans.span("align.chunk", chunk):
             pad = _bucket(int(np.diff(offs).max()) if n_reads else 1,
-                          floor=self.cfg.read_pad)
+                          floor=self._read_floor)
             # bucket the ROW count too, so the final partial chunk reuses the
             # full chunks' shape (zero-length pad rows score 0 by the
             # PAD_A-vs-PAD_B sentinel contract)
@@ -518,21 +492,12 @@ class AlignmentEngine:
                   else min(self.cfg.chunk_size_reads,
                            _bucket(n_reads, floor=128)))
             key = ("reads", self.mode, pad, Bp)
-            packed = self.cfg.packed_transfer and pad % 4 == 0
             try:
                 with spans.span("align.pad"):
                     arr_a, la = encode.pad_batch_flat(
                         flat, offs, pad_to=pad, pad_value=int(encode.PAD_A),
                         rows_to=Bp)
-                    if not packed:
-                        arr_b = np.where(
-                            np.arange(pad, dtype=np.int32)[None, :]
-                            < la[:, None], arr_a, encode.PAD_B)
-                if packed:
-                    val = self._packed_self_sum(self.mode, arr_a, la)
-                else:
-                    with spans.span("align.launch"):
-                        val = self._self_sum(self.mode, arr_a, arr_b, la, la)
+                val = self._packed_self_sum(self.mode, arr_a, la)
                 enqueue(warm(key, val), 2 * int(flat.size))
             except Exception as e:
                 skip_failed(e)
@@ -552,7 +517,6 @@ class AlignmentEngine:
         bases1 = fastq.count_bases(file1, self.cfg.chunk_size_reads)
         bases2 = fastq.count_bases(file2, self.cfg.chunk_size_reads)
         deferred: list[torch.Tensor] = []
-        total = 0
         if self.mode in TWO_SIDED:
             with contextlib.ExitStack() as stack:
                 it1, it2 = (stack.enter_context(fastq.prefetch(
@@ -563,9 +527,9 @@ class AlignmentEngine:
                     if n:
                         deferred.append(self._score_flat_pairs(
                             f1, o1[: n + 1], f2, o2[: n + 1]).sum())
-        elif self.cfg.packed_transfer:
-            # the same cross product, chunk2s scored in groups of 8 per
-            # device call with a single deferred drain
+        else:
+            # the cross product, chunk2s scored in groups of 8 per device
+            # call with a single deferred drain
             for c1 in fastq.iter_read_chunks(file1, self.cfg.chunk_size_reads):
                 concat1 = b"".join(c1)
                 c1_cache: dict = {}
@@ -580,14 +544,9 @@ class AlignmentEngine:
                 if group:
                     deferred.append(self._score_concat_pair_group(
                         concat1, group, c1_cache=c1_cache))
-        else:
-            for c1 in fastq.iter_read_chunks(file1, self.cfg.chunk_size_reads):
-                concat1 = b"".join(c1)
-                for c2 in fastq.iter_read_chunks(file2,
-                                                 self.cfg.chunk_size_reads):
-                    total += self._score_concat_pair(concat1, b"".join(c2))
-        if deferred:  # one read of the device total
-            total += int(torch.stack(deferred).to(torch.int64).sum())
+        # one read of the device total
+        total = (int(torch.stack(deferred).to(torch.int64).sum())
+                 if deferred else 0)
         ms = (time.perf_counter() - t0) * 1000
         return PairResult(score=total, processing_time_ms=ms,
                           device=get_system_info(self.device).device_kind,

@@ -36,7 +36,11 @@ from mini_parallel_tpu_torch.ops import encode, kadane
 from mini_parallel_tpu_torch.ops import packed as packedmod
 from mini_parallel_tpu_torch.ops.sw_cuda import sw_score_batch_best
 from mini_parallel_tpu_torch.parallel import collectives
-from mini_parallel_tpu_torch.parallel.mesh import engine_mesh, mesh_device
+from mini_parallel_tpu_torch.parallel.mesh import (
+    engine_mesh,
+    mesh_device,
+    put_sharded,
+)
 from mini_parallel_tpu_torch.utils.config import Config
 
 
@@ -127,16 +131,12 @@ class ComplementarityEngine:
             f1[: int(o1[-1])], o1, pad_to=pad, pad_value=int(encode.PAD_A))
         arr2, len2 = encode.pad_batch_flat(
             f2[: int(o2[-1])], o2, pad_to=pad, pad_value=int(encode.PAD_B))
-        if self.cfg.packed_transfer and pad % 4 == 0:
-            p1 = packedmod.pack_batch(arr1, len1)
-            p2 = packedmod.pack_batch(arr2, len2)
-            return collectives.merge_scores([
-                _pair_stats_packed(*s1, *s2, mode=self.mode)
-                for s1, s2 in zip(packedmod.put_sharded(p1, self.mesh),
-                                  packedmod.put_sharded(p2, self.mesh))])
-        a, b, la, lb = (torch.from_numpy(x).to(self.device)
-                        for x in (arr1, arr2, len1, len2))
-        return _stat_sums(*_pair_scores(a, b, la, lb, self.mode))
+        p1 = packedmod.pack_batch(arr1, len1)
+        p2 = packedmod.pack_batch(arr2, len2)
+        return collectives.merge_scores([
+            _pair_stats_packed(*s1, *s2, mode=self.mode)
+            for s1, s2 in zip(put_sharded(p1, self.mesh),
+                              put_sharded(p2, self.mesh))])
 
     def analyze_lane_pair(self, file1: str, file2: str, progress=None
                           ) -> ComplementarityResult:

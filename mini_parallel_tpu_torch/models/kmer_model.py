@@ -37,7 +37,7 @@ from mini_parallel_tpu_torch.native import BuildError, kmer_store
 from mini_parallel_tpu_torch.ops import encode, kmer
 from mini_parallel_tpu_torch.ops import packed as packedmod
 from mini_parallel_tpu_torch.ops.kmer import EMPTY_ARRAYS, merge_sorted_arrays
-from mini_parallel_tpu_torch.parallel.mesh import mesh_device
+from mini_parallel_tpu_torch.parallel.mesh import mesh_device, put_sharded
 from mini_parallel_tpu_torch.utils.config import Config
 
 WRITE_BLOCK = 1 << 20  # k-mers formatted and written at a time
@@ -230,17 +230,12 @@ class KmerEngine:
         pad = max(self.cfg.read_pad, self.k + 7, maxlen)
         return -(-pad // 8) * 8
 
-    def _count_device(self, arr: np.ndarray, lens: np.ndarray, pad: int):
+    def _count_device(self, arr: np.ndarray, lens: np.ndarray):
         """(keys, counts, n_unique) of one padded batch, on the device."""
-        if self.cfg.packed_transfer and pad % 4 == 0:
-            return kmer.unique_counts_packed(
-                *packedmod.device_args(packedmod.pack_batch(arr, lens),
-                                       self.device),
-                k=self.k, canonical=self.canonical)
-        codes = encode.ascii_to_code(torch.from_numpy(arr).to(self.device))
-        return kmer.unique_counts_batch(
-            codes, torch.from_numpy(lens).to(self.device), k=self.k,
-            canonical=self.canonical)
+        return kmer.unique_counts_packed(
+            *packedmod.device_args(packedmod.pack_batch(arr, lens),
+                                   self.device),
+            k=self.k, canonical=self.canonical)
 
     def count_reads_batch(self, reads: list[bytes], agg) -> tuple[int, int]:
         """Count one batch on the device and merge it into ``agg`` (a
@@ -248,17 +243,16 @@ class KmerEngine:
         pad = self._pad_for(max((len(r) for r in reads), default=1))
         arr, lens = encode.pad_batch(reads, pad_to=pad,
                                      pad_value=int(encode.PAD_A))
-        return self._count_arr_batch(arr, lens, pad, agg)
+        return self._count_arr_batch(arr, lens, agg)
 
-    def _count_arr_batch(self, arr, lens, pad, agg) -> tuple[int, int]:
-        if (self.mesh is not None and self.cfg.packed_transfer
-                and pad % 4 == 0):
+    def _count_arr_batch(self, arr, lens, agg) -> tuple[int, int]:
+        if self.mesh is not None:
             parts = [kmer.unique_counts_packed(*args, k=self.k,
                                                canonical=self.canonical)
-                     for args in packedmod.put_sharded(
+                     for args in put_sharded(
                          packedmod.pack_batch(arr, lens), self.mesh)]
         else:
-            parts = [self._count_device(arr, lens, pad)]
+            parts = [self._count_device(arr, lens)]
         total = 0
         for keys, counts, _ in parts:  # each shard's distinct keys
             keys, counts = keys.cpu().numpy(), counts.cpu().numpy()
@@ -327,7 +321,7 @@ class KmerEngine:
         acc = self._new_accumulator()
         total = torch.zeros((), dtype=torch.int64, device=self.device)
         chunk_size = self.cfg.chunk_size_reads
-        min_pad = max(self.cfg.read_pad, -(-(self.k + 7) // 8) * 8)
+        min_pad = self._pad_for(1)
         joined = "|".join(paths)
         with fastq.prefetch(fastq.iter_flat_chunks_multi(
                 paths, chunk_size, progress=progress)) as batches:
@@ -342,7 +336,7 @@ class KmerEngine:
                     pad *= 2
                 arr, lens = encode.pad_batch_flat(
                     flat, offs, pad_to=pad, pad_value=int(encode.PAD_A))
-                keys, counts, _ = self._count_device(arr, lens, pad)
+                keys, counts, _ = self._count_device(arr, lens)
                 acc.add(keys, counts)
                 total += counts.sum()
                 if (checkpoint_path and checkpoint_every
@@ -390,8 +384,7 @@ class KmerEngine:
         t0 = time.perf_counter()
         base, start_chunk = self._load_resume(checkpoint_path, res,
                                               file_path=joined)
-        if (self.device_accumulate and self.cfg.packed_transfer
-                and self.mesh is None):
+        if self.device_accumulate and self.mesh is None:
             self._count_file_device(
                 paths, res, progress, start_chunk, base, checkpoint_path,
                 checkpoint_every, result_mode, summary_top_n)
@@ -408,7 +401,7 @@ class KmerEngine:
                                     else 1)
                 arr, lens = encode.pad_batch_flat(
                     flat, offs, pad_to=pad, pad_value=int(encode.PAD_A))
-                n_kmers, n_reads = self._count_arr_batch(arr, lens, pad, agg)
+                n_kmers, n_reads = self._count_arr_batch(arr, lens, agg)
                 res.total_kmers += n_kmers
                 res.total_reads += n_reads
                 if (checkpoint_path and checkpoint_every

@@ -69,6 +69,7 @@ from mini_parallel_tpu_torch.parallel import collectives
 from mini_parallel_tpu_torch.parallel.mesh import (
     engine_mesh,
     mesh_device,
+    put_sharded,
     shard_batch,
 )
 from mini_parallel_tpu_torch.utils import spans
@@ -673,8 +674,7 @@ class VariantPrepEngine:
     def process_flat_batch(self, flat: np.ndarray, offs: np.ndarray,
                            pileup_acc):
         """One flat (bytes, offsets) chunk into ``pileup_acc`` (updated in
-        place). The packed path returns the mapped count as a DEFERRED
-        device scalar."""
+        place). Returns the mapped count as a DEFERRED device scalar."""
         with spans.span("variant.prep"):
             arr, lens, pad = self._prep_batch_flat(flat, offs)
         with spans.span("variant.step"):
@@ -704,13 +704,14 @@ class VariantPrepEngine:
             pk, ec, ev, lens, qb, *index, pileup_acc, G, rescue=self.rescue,
             rescue_min_frac=self.rescue_min_frac)
 
-    def _process_batch_sharded(self, pb, qmask, pileup_acc, pad: int,
-                               G: int):
-        """Each shard runs the batch step on its rows, the first into
-        ``pileup_acc`` (in place), every other against a zero pileup on
-        its device; those pileups merge into ``pileup_acc`` and the mapped
-        counts into one deferred device scalar."""
-        shards = packedmod.put_sharded(pb, self.mesh)
+    def _process_prepped(self, arr, lens, pad, pileup_acc, qmask):
+        """Pack one padded batch; each shard runs the batch step on its
+        rows, the first into ``pileup_acc`` (in place), every other
+        against a zero pileup on its device; those pileups merge into
+        ``pileup_acc`` and the mapped counts into one deferred device
+        scalar."""
+        G = len(self.index.ref_codes)
+        shards = put_sharded(packedmod.pack_batch(arr, lens), self.mesh)
         if qmask is None:
             qbs = [None] * len(shards)
         else:
@@ -731,34 +732,6 @@ class VariantPrepEngine:
             pileup_acc += collectives.merge_scores(piles[1:]).to(
                 pileup_acc.device)
         return pileup_acc, collectives.merge_scores(counts)
-
-    def _process_prepped(self, arr, lens, pad, pileup_acc, qmask):
-        G = len(self.index.ref_codes)
-        idx = self.index
-        dev = self.device
-        if self.cfg.packed_transfer and pad % 4 == 0:
-            return self._process_batch_sharded(
-                packedmod.pack_batch(arr, lens), qmask, pileup_acc, pad, G)
-        codes = encode.ascii_to_code(torch.from_numpy(arr).to(dev))
-        lens_t = torch.from_numpy(np.asarray(lens, np.int32)).to(dev)
-        final_codes, final_starts, final_mapped, flipped = _map_codes_batch(
-            codes, lens_t, idx.sorted_keys, idx.sorted_pos, idx.ref_ascii_dev,
-            SEED_K, self.rescue, self.rescue_min_frac)
-        qual_ok = None
-        if qmask is not None:
-            qm = torch.from_numpy(qmask).to(dev)
-            qual_ok = torch.where(flipped[:, None], _reverse_prefix(qm, lens_t),
-                                  qm)
-        if self.gapped:
-            return _gapped_pileup_step(
-                final_codes, lens_t, final_starts, final_mapped,
-                idx.ref_ascii_dev, pileup_acc, G,
-                pad + 2 * self.window_margin, self.window_margin, qual_ok,
-                gap_model=self.gap_model, gap_open=self.cfg.gap_open,
-                gap_extend=self.cfg.gap_extend)
-        _pileup_batch(final_codes, lens_t, final_starts, final_mapped, G,
-                      qual_ok, acc=pileup_acc)
-        return pileup_acc, int(final_mapped.sum())
 
     # -- checkpoints ---------------------------------------------------------
 
@@ -876,10 +849,7 @@ class VariantPrepEngine:
                             flat, offs, pileup)
                 n_reads = len(offs) - 1
                 res.total_reads += n_reads
-                if isinstance(n_mapped, int):
-                    res.mapped_reads += n_mapped
-                else:
-                    deferred.append(n_mapped)
+                deferred.append(n_mapped)
                 if (checkpoint_path and checkpoint_every
                         and (idx + 1) % checkpoint_every == 0):
                     res.mapped_reads += _drain(deferred)

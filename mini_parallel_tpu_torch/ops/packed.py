@@ -202,24 +202,6 @@ def device_args(pb: PackedBatch, device: torch.device) -> tuple[torch.Tensor, ..
     )
 
 
-def put_sharded(pb: PackedBatch, mesh, axis: str | None = None
-                ) -> list[tuple[torch.Tensor, ...]]:
-    """:func:`device_args` split over ``mesh``: the batch is padded with
-    empty rows (:func:`pad_rows`) to a positive multiple of the shard
-    count of ``axis`` (default: the mesh's first axis) and cut into
-    contiguous row blocks, one argument tuple per shard on its shard's
-    device."""
-    from mini_parallel_tpu_torch.parallel.mesh import (
-        pad_to_shards,
-        shard_batch,
-    )
-
-    n = len(mesh.axis_devices(axis))
-    pb = pad_rows(pb, pad_to_shards(max(pb.batch, 1), n))
-    return shard_batch(mesh, (pb.packed, pb.exc_col, pb.exc_val, pb.lengths),
-                       axis)
-
-
 def unpack_device(packed: torch.Tensor, exc_col: torch.Tensor,
                   exc_val: torch.Tensor, lengths: torch.Tensor,
                   pad_value: int) -> torch.Tensor:

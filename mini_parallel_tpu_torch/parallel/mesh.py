@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from mini_parallel_tpu_torch.device import NoAcceleratorError
+from mini_parallel_tpu_torch.ops.packed import PackedBatch, pad_rows
 
 DATA_AXIS = "data"  # read-batch (data-parallel) axis
 SEQ_AXIS = "seq"  # sequence-position (sequence-parallel) axis
@@ -131,6 +132,19 @@ def shard_batch(mesh: Mesh, arrays, data_axis: str | None = None
                                     devs):
             part.append(block.to(dev, non_blocking=True))
     return [tuple(p) for p in shards]
+
+
+def put_sharded(pb: PackedBatch, mesh: Mesh, axis: str | None = None
+                ) -> list[tuple[torch.Tensor, ...]]:
+    """A packed batch's ``device_args`` (ops/packed.py) split over
+    ``mesh``: the batch is padded with empty rows (``pad_rows``) to a
+    positive multiple of the shard count of ``axis`` (default: the mesh's
+    first axis) and cut into contiguous row blocks, one argument tuple per
+    shard on its shard's device."""
+    n = len(mesh.axis_devices(axis))
+    pb = pad_rows(pb, pad_to_shards(max(pb.batch, 1), n))
+    return shard_batch(mesh, (pb.packed, pb.exc_col, pb.exc_val, pb.lengths),
+                       axis)
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,7 @@ from mini_parallel_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     SEQ_AXIS,
     Mesh,
+    put_sharded,
     shard_batch,
 )
 
@@ -119,8 +120,8 @@ def make_wgs_step_packed(mesh: Mesh, data_axis: str = DATA_AXIS):
 
     def step(pa: packedmod.PackedBatch, pb: packedmod.PackedBatch) -> dict:
         parts = []
-        for sa, sb in zip(packedmod.put_sharded(pa, mesh, data_axis),
-                          packedmod.put_sharded(pb, mesh, data_axis)):
+        for sa, sb in zip(put_sharded(pa, mesh, data_axis),
+                          put_sharded(pb, mesh, data_axis)):
             a = packedmod.unpack_device(*sa, int(encode.PAD_A))
             b = packedmod.unpack_device(*sb, int(encode.PAD_B))
             parts.append(_local_wgs_step(a, b, sa[3], sb[3]))

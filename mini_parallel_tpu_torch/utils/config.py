@@ -1,9 +1,10 @@
 """Configuration: .env + environment variables, reference-compatible schema.
 
 The same schema, fields and defaults as mini_parallel_tpu/utils/config.py,
-so one .env drives both packages. Knobs the port does not use yet
-(``MPT_MESH_SHAPE``, ``MPT_BATCH_PAD``, the affine gap costs) are parsed
-all the same and refused where they would take effect.
+less the transfer switch ignored below, so one .env drives both packages.
+Knobs the port does not use yet (``MPT_MESH_SHAPE``, ``MPT_BATCH_PAD``,
+the affine gap costs) are parsed all the same and refused where they
+would take effect.
 
 The reference's config tiers (`README.md:23-33`, `main.rs:50`,
 `aligner.rs:8-15,184-204,466-469`):
@@ -15,11 +16,15 @@ The reference's config tiers (`README.md:23-33`, `main.rs:50`,
   alias ``CHUNK_SIZE_READS``,
 - ``USE_PINNED_MEMORY`` — accepted and ignored,
 - ``GPU_CHUNK_SIZE_BASES`` — documented but never read by the reference
-  (README.md:32); same here.
+  (README.md:32); same here,
+- ``MPT_PACKED_TRANSFER`` — the JAX package's choice between 2-bit packed
+  and raw uint8 read batches; ignored here: the port sends read batches
+  2-bit packed (ops/packed.py) and has no other route.
 
 Knobs of the JAX package, all optional with safe defaults:
 - ``MPT_READ_PAD`` — static read-length bucket (default 152; Illumina reads
-  are <=151bp, and 152 is a multiple of 4, as 2-bit packing needs),
+  are <=151bp; the engines round it up to a multiple of 4, as 2-bit
+  packing needs),
 - ``MPT_BATCH_PAD`` — batch bucket rounding (default 1024, a lane multiple),
 - ``MPT_MESH_SHAPE`` — e.g. "8" or "4x2" for (data, seq) axes,
 - ``MPT_MODE`` — "kadane" (reference parity, default) or "sw" (true DP).
@@ -67,10 +72,6 @@ class Config:
     mode: str = "kadane"  # "kadane" parity | "sw" | "sw-affine" | "contiguous"
     gap_open: int = -2  # affine mode: first gap char costs open + extend
     gap_extend: int = -1
-    # 2-bit packed host->device transfer (ops/packed.py): 4x fewer wire
-    # bytes, bit-exact via per-row exception lists. Off = raw uint8 ASCII
-    # (the reference's representation, aligner.rs:478-499).
-    packed_transfer: bool = True
 
     @property
     def total_files(self) -> int:
@@ -134,6 +135,4 @@ def get_config(env: dict | None = None, require_chunk_size: bool = True) -> Conf
         mode=env.get("MPT_MODE", "kadane"),
         gap_open=_int(env, "MPT_GAP_OPEN", -2),
         gap_extend=_int(env, "MPT_GAP_EXTEND", -1),
-        packed_transfer=str(env.get("MPT_PACKED_TRANSFER", "true")).lower()
-        != "false",
     )

@@ -61,13 +61,14 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     assert sw_cuda.sw_score_batch_cuda(a[:0], a[:0]).shape == (0,)
 
 
-@pytest.mark.parametrize("packed", [True, False])
-def test_engine_sw_launches_once_per_chunk(tmp_path, cuda_device, packed):
+@pytest.mark.parametrize("read_pad", [152, 62])
+def test_engine_sw_launches_once_per_chunk(tmp_path, cuda_device, read_pad):
     rng = np.random.default_rng(1)
     reads = _rows(rng, 23, 151)
     path = str(tmp_path / "lane.fastq.gz")
     fastq.write_fastq(path, reads)
-    cfg = Config(chunk_size_reads=5, packed_transfer=packed)
+    # 62 rounds up to 64 and buckets the 151 bp reads to 256 columns
+    cfg = Config(chunk_size_reads=5, read_pad=read_pad)
     launches = sw_cuda.sw_score_batch_cuda.launches
     res = AlignmentEngine(cfg, mode="sw", device=cuda_device).self_align_file(path)
     assert sw_cuda.sw_score_batch_cuda.launches == launches + res.chunks == launches + 5

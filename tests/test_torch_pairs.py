@@ -35,8 +35,10 @@ MODES = ("kadane", "sw", "sw-affine", "contiguous")
 _RC = bytes.maketrans(b"ACGT", b"TGCA")
 
 
-def _jax_cfg(cfg):
-    return JaxConfig(**dataclasses.asdict(cfg))
+def _jax_cfg(cfg, **jax_only):
+    """The JAX package's Config of ``cfg``, with ``jax_only`` fields the
+    port does not have (its ``packed_transfer`` route switch)."""
+    return JaxConfig(**dataclasses.asdict(cfg), **jax_only)
 
 
 def _reads(rng, n, lo, hi, alphabet=b"ACGTN"):
@@ -60,12 +62,15 @@ def lanes(tmp_path, rng):
 
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("packed", [True, False])
-def test_pair_align_files_matches_jax(lanes, mode, packed):
-    cfg = Config(chunk_size_reads=5, packed_transfer=packed, gap_open=-3,
-                 gap_extend=-1)
+@pytest.mark.parametrize("jax_packed", [True, False])
+def test_pair_align_files_matches_jax(lanes, mode, jax_packed):
+    """The port's one (packed) route against the JAX package's packed and
+    raw routes; with the raw one, a read_pad the port rounds up to 64."""
+    cfg = Config(chunk_size_reads=5, read_pad=152 if jax_packed else 62,
+                 gap_open=-3, gap_extend=-1)
     got = AlignmentEngine(cfg, mode=mode, device=CPU).pair_align_files(*lanes)
-    want = JaxEngine(_jax_cfg(cfg), mode=mode).pair_align_files(*lanes)
+    want = JaxEngine(_jax_cfg(cfg, packed_transfer=jax_packed),
+                     mode=mode).pair_align_files(*lanes)
     assert (got.score, got.bases1, got.bases2) == \
         (want.score, want.bases1, want.bases2)
     assert got.device == "cpu" and got.processing_time_ms > 0
@@ -90,14 +95,17 @@ def test_pair_mode_zip_stops_at_shorter_file_and_joins(lanes):
 
 
 @pytest.mark.parametrize("mode", ["sw", "kadane"])
-@pytest.mark.parametrize("packed", [True, False])
-def test_complementarity_matches_jax(lanes, mode, packed):
-    cfg = Config(chunk_size_reads=4, packed_transfer=packed)
+@pytest.mark.parametrize("jax_packed", [True, False])
+def test_complementarity_matches_jax(lanes, mode, jax_packed):
+    """The port's one (packed) route against the JAX package's packed and
+    raw routes."""
+    cfg = Config(chunk_size_reads=4)
     logs = []
     got = ComplementarityEngine(cfg, mode=mode, device=CPU).analyze_lane_pair(
         *lanes, progress=logs.append)
     jlogs = []
-    want = JaxComplementarity(_jax_cfg(cfg), mode=mode).analyze_lane_pair(
+    want = JaxComplementarity(_jax_cfg(cfg, packed_transfer=jax_packed),
+                              mode=mode).analyze_lane_pair(
         *lanes, progress=jlogs.append)
     fields = ("pairs", "direct_score_sum", "comp_score_sum", "perfect_pairs",
               "unpaired_reads")
@@ -119,16 +127,19 @@ def test_complementarity_pad_rule():
 
 
 @pytest.mark.parametrize("mode", ["sw-affine", "contiguous"])
-@pytest.mark.parametrize("packed", [True, False])
-def test_self_align_file_new_modes_match_jax(tmp_path, rng, mode, packed):
+@pytest.mark.parametrize("jax_packed", [True, False])
+def test_self_align_file_new_modes_match_jax(tmp_path, rng, mode, jax_packed):
     reads = _reads(rng, 23, 150, 280)
     reads[7] = reads[7][:3]
     path = str(tmp_path / "lane.fastq.gz")
     fastq.write_fastq(path, reads)
-    cfg = Config(chunk_size_reads=5, packed_transfer=packed,
-                 read_pad=64 if packed else 62, gap_open=-4, gap_extend=-1)
+    # the port's one (packed) route against the JAX package's packed and
+    # raw routes; with the raw one, a read_pad the port rounds up to 64
+    cfg = Config(chunk_size_reads=5, read_pad=64 if jax_packed else 62,
+                 gap_open=-4, gap_extend=-1)
     got = AlignmentEngine(cfg, mode=mode, device=CPU).self_align_file(path)
-    want = JaxEngine(_jax_cfg(cfg), mode=mode).self_align_file(path)
+    want = JaxEngine(_jax_cfg(cfg, packed_transfer=jax_packed),
+                     mode=mode).self_align_file(path)
     assert (got.score, got.total_bases, got.total_reads, got.chunks) == \
         (want.score, want.total_bases, want.total_reads, want.chunks)
     assert got.failed_chunks == 0

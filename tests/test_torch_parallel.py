@@ -54,6 +54,7 @@ from mini_parallel_tpu_torch.parallel import collectives, pipeline
 from mini_parallel_tpu_torch.parallel.mesh import (
     make_mesh,
     pad_to_shards,
+    put_sharded,
     shard_batch,
 )
 from mini_parallel_tpu_torch.utils.config import Config
@@ -69,8 +70,10 @@ def tmesh8():
     return make_mesh((8,), devices=[CPU] * 8)
 
 
-def _jcfg(cfg: Config) -> JConfig:
-    return JConfig(**dataclasses.asdict(cfg))
+def _jcfg(cfg: Config, **jax_only) -> JConfig:
+    """The JAX package's Config of ``cfg``, with ``jax_only`` fields the
+    port does not have (its ``packed_transfer`` route switch)."""
+    return JConfig(**dataclasses.asdict(cfg), **jax_only)
 
 
 def _t(x) -> torch.Tensor:
@@ -112,7 +115,7 @@ def test_shard_batch_and_put_sharded_split_rows_in_order(tmesh8, rng):
     reads = [random_dna(rng, int(n)) for n in rng.integers(0, 40, 13)]
     arr, lens = encode.pad_batch(reads, pad_to=40, pad_value=int(encode.PAD_A))
     pb = packedmod.pack_batch(arr, lens)
-    parts = packedmod.put_sharded(pb, tmesh8)
+    parts = put_sharded(pb, tmesh8)
     assert [p[0].shape[0] for p in parts] == [2] * 8  # 13 rows -> 16
     got = torch.cat([packedmod.unpack_device(*p, int(encode.PAD_A))
                      for p in parts])
@@ -200,17 +203,21 @@ def lane(tmp_path, rng):
 
 
 @pytest.mark.parametrize("mode", ["kadane", "contiguous", "sw", "sw-affine"])
-@pytest.mark.parametrize("packed", [True, False])
-def test_sharded_self_align_matches_local_and_jax(lane, mode, packed,
+@pytest.mark.parametrize("jax_packed", [True, False])
+def test_sharded_self_align_matches_local_and_jax(lane, mode, jax_packed,
                                                   tmesh8, mesh8):
-    cfg = Config(chunk_size_reads=6, read_pad=200, packed_transfer=packed)
+    """The port's one (packed) route against the JAX package's packed
+    and raw routes; with the raw one, a read_pad of 198 that the port
+    rounds up to 200."""
+    cfg = Config(chunk_size_reads=6, read_pad=200 if jax_packed else 198)
     local = AlignmentEngine(cfg, mode=mode, device=CPU).self_align_file(lane)
     shard = AlignmentEngine(cfg, mode=mode, mesh=tmesh8).self_align_file(lane)
     got = (shard.score, shard.total_reads, shard.total_bases, shard.chunks)
     assert got == (local.score, local.total_reads, local.total_bases,
                    local.chunks)
     if mode != "sw-affine":  # the JAX package's own mesh test's modes
-        j = JAlignment(_jcfg(cfg), mode=mode, mesh=mesh8).self_align_file(lane)
+        j = JAlignment(_jcfg(cfg, packed_transfer=jax_packed), mode=mode,
+                       mesh=mesh8).self_align_file(lane)
         assert got == (j.score, j.total_reads, j.total_bases, j.chunks)
 
 
@@ -219,10 +226,8 @@ def test_sharded_small_batch_padding(tmp_path, rng, tmesh8):
     path = str(tmp_path / "one.fastq.gz")
     fastq.write_fastq(path, [random_dna(rng, 1200)])
     cfg = Config(chunk_size_reads=1, read_pad=2048)
-    for packed in (True, False):
-        c = dataclasses.replace(cfg, packed_transfer=packed)
-        assert AlignmentEngine(c, mode="kadane", mesh=tmesh8).self_align_file(
-            path).score == 2
+    assert AlignmentEngine(cfg, mode="kadane", mesh=tmesh8).self_align_file(
+        path).score == 2
 
 
 @pytest.mark.parametrize("mode", ["sw", "kadane", "sw-affine", "contiguous"])

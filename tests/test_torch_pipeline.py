@@ -45,8 +45,10 @@ def cfg(tmp_path):
                   reads_per_lane=1, chunk_size_reads=5, read_pad=64)
 
 
-def _jax_cfg(cfg):
-    return JaxConfig(**dataclasses.asdict(cfg))
+def _jax_cfg(cfg, **jax_only):
+    """The JAX package's Config of ``cfg``, with ``jax_only`` fields the
+    port does not have (its ``packed_transfer`` route switch)."""
+    return JaxConfig(**dataclasses.asdict(cfg), **jax_only)
 
 
 def _reads(rng, n, lo, hi, alphabet=b"ACGT"):
@@ -66,17 +68,19 @@ def _same(got, want):
 
 
 @pytest.mark.parametrize("mode", ["kadane", "sw"])
-@pytest.mark.parametrize("packed", [True, False])
-def test_self_align_file_matches_jax(tmp_path, rng, cfg, mode, packed):
+@pytest.mark.parametrize("jax_packed", [True, False])
+def test_self_align_file_matches_jax(tmp_path, rng, cfg, mode, jax_packed):
     # 23 reads in chunks of 5: ragged lengths, N bases, a partial last
     # chunk, and (kadane) chunks on both sides of the 1000-base skip
     reads = _reads(rng, 23, 150, 280, alphabet=b"ACGTN")
     reads[7] = reads[7][:3]
     path = _lane(tmp_path, "lane.fastq.gz", reads)
-    cfg = dataclasses.replace(cfg, packed_transfer=packed,
-                              read_pad=64 if packed else 62)
+    # the port's one (packed) route against the JAX package's packed and
+    # raw routes; with the raw one, a read_pad the port rounds up to 64
+    cfg = dataclasses.replace(cfg, read_pad=64 if jax_packed else 62)
     got = AlignmentEngine(cfg, mode=mode, device=CPU).self_align_file(path)
-    want = JaxEngine(_jax_cfg(cfg), mode=mode).self_align_file(path)
+    want = JaxEngine(_jax_cfg(cfg, packed_transfer=jax_packed),
+                     mode=mode).self_align_file(path)
     assert _same(got, want)
     assert got.chunks == 5 and got.failed_chunks == 0
     if mode == "sw":
@@ -131,11 +135,12 @@ def test_score_read_batch_and_strings_match_jax(rng, cfg):
     ra = _reads(rng, 9, 0, 70, alphabet=b"ACGTN")
     rb = _reads(rng, 9, 0, 70, alphabet=b"ACGTN")
     for mode in ("kadane", "sw"):
-        for packed in (True, False):
-            c = dataclasses.replace(cfg, packed_transfer=packed)
-            got = AlignmentEngine(c, mode=mode, device=CPU).score_read_batch(ra, rb)
-            want = JaxEngine(_jax_cfg(c), mode=mode).score_read_batch(ra, rb)
-            assert got.tolist() == want.tolist(), (mode, packed)
+        got = AlignmentEngine(cfg, mode=mode, device=CPU).score_read_batch(
+            ra, rb)
+        for jax_packed in (True, False):  # both of the JAX package's routes
+            want = JaxEngine(_jax_cfg(cfg, packed_transfer=jax_packed),
+                             mode=mode).score_read_batch(ra, rb)
+            assert got.tolist() == want.tolist(), (mode, jax_packed)
         eng, jeng = AlignmentEngine(cfg, mode=mode, device=CPU), JaxEngine(
             _jax_cfg(cfg), mode=mode)
         for a, b in [("ACGT", "ACGA"), ("AAAA", "TTTT"), ("", "ACGT"),

@@ -111,9 +111,12 @@ def sample(tmp_path_factory):
     return {"contigs": contigs, "ref": ref, "lanes": lanes, "dir": d}
 
 
-def _cfgs(**kw):
+def _cfgs(jax_packed: bool = True, **kw):
+    """The port's Config and the JAX package's; ``jax_packed`` picks the
+    JAX package's transfer route (the port has the packed one only)."""
     cfg = Config(chunk_size_reads=CHUNK, **kw)
-    return cfg, JaxConfig(**dataclasses.asdict(cfg))
+    return cfg, JaxConfig(**dataclasses.asdict(cfg),
+                          packed_transfer=jax_packed)
 
 
 def _cands(res):
@@ -148,13 +151,13 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("packed_transfer", [True, False])
+@pytest.mark.parametrize("jax_packed", [True, False])
 @pytest.mark.parametrize("case", list(CASES))
-def test_process_file_matches_jax(sample, tmp_path, case, packed_transfer):
+def test_process_file_matches_jax(sample, tmp_path, case, jax_packed):
     """Both lanes as one sample, every engine mode: pileup, counts,
-    candidates and VCF bytes equal the JAX package's."""
-    cfg, jcfg = _cfgs(packed_transfer=packed_transfer, gap_open=-3,
-                      gap_extend=-1)
+    candidates and VCF bytes equal the JAX package's, on its packed and
+    its raw route."""
+    cfg, jcfg = _cfgs(jax_packed=jax_packed, gap_open=-3, gap_extend=-1)
     kw = CASES[case]
     got = vp.VariantPrepEngine(sample["contigs"], cfg, device=CPU,
                                **kw).process_file(sample["lanes"])
