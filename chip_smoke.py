@@ -6,7 +6,7 @@
 Phases, one line or more each; any failure raises and exits non-zero:
 
 1. Card: name and power limit (nvidia-smi), torch and CUDA versions; build
-   the seven kernel sources of mini_parallel_tpu_torch/csrc (one nvcc each)
+   the eight kernel sources of mini_parallel_tpu_torch/csrc (one nvcc each)
    and the three host libraries of mini_parallel_tpu_torch/native (one g++
    each: the FASTQ decoder, the 2-bit packer, the k-mer store), all started
    together, and report their build seconds, where they went and ptxas's
@@ -71,10 +71,15 @@ Phases, one line or more each; any failure raises and exits non-zero:
     cell's move: a real --gapped chunk (10,000 x 152 vs 184, every pair's
     moves in shared memory), a ragged batch whose last block has one pair,
     a batch of one, and the device-memory cases: rows past one stripe and
-    1,500-base windows.
+    1,500-base windows. The pileup kernel (csrc/pileup.cu) == the plain
+    torch route on the --gapped chunk's affine positions (10,000 x 152),
+    without a quality mask and with its --min-base-quality 10 mask: every
+    count, the trash slot 0, one launch a call.
 12. Times (CUDA events, medians; each plain version once): the vs-ref
     kernel on the --rescue chunk and on 1,000 reads against the whole
-    reference, the traceback kernels on the --gapped chunk. Batched CIGAR
+    reference, the traceback kernels on the --gapped chunk, the pileup
+    kernel, the plain route and its index_add_ alone on it (with the bytes
+    its bound counts). Batched CIGAR
     alignment (``sw_align_batch``, ``sw_affine_align_batch``: the moves
     kernel with its moves out, a host walk of its moves words) on the
     --gapped chunk's 10,000 pairs at 152 x 184 and 64 pairs at 300 x 700
@@ -89,7 +94,8 @@ Phases, one line or more each; any failure raises and exits non-zero:
     --min-base-quality 10 (no depth above the unmasked run's); a
     checkpoint resumed through the CLI to the clean run's pileup; the
     4,000-read lane on the card == on the CPU (pileup, candidates, SAM
-    bytes), linear and affine. Kernel counts as in phase 8.
+    bytes), linear and affine. Kernel counts as in phase 8; the pileup
+    kernel launches once a chunk on every path.
 14. ``cli.main(["--variant-prep", ..., "--gapped", "--gap-model",
     "affine", "--genotype", ...])`` on the two lanes at the defaults: lanes
     scored and recomputed in float64, the Pair-HMM launches (one in each
@@ -137,6 +143,7 @@ Phases, one line or more each; any failure raises and exits non-zero:
     --gap-model affine --genotype`` and ``--kmer`` on phase 9's two lanes
     with ``--profile``: in each trace every port kernel launched as often
     as its wrapper counted (set to 0 just before, read just after), the
+    pileup kernel once a first-pass chunk, the
     device-busy share from the trace (kernel, memcpy and memset intervals
     over the traced window), and the wall with --profile beside the wall
     without it.
@@ -257,6 +264,7 @@ def phase_card():
     from mini_parallel_tpu_torch.device import device_info
     from mini_parallel_tpu_torch.ops import (
         pairhmm_cuda,
+        pileup_cuda,
         sw_cuda,
         sw_long,
         sw_traceback_cuda,
@@ -272,6 +280,7 @@ def phase_card():
             (sw_cuda.VS_REF_KERNEL_NAME, sw_cuda.VS_REF_KERNEL_SOURCES),
             (sw_traceback_cuda.KERNEL_NAME, sw_traceback_cuda.KERNEL_SOURCES),
             (pairhmm_cuda.KERNEL_NAME, pairhmm_cuda.KERNEL_SOURCES),
+            (pileup_cuda.KERNEL_NAME, pileup_cuda.KERNEL_SOURCES),
             (roofline.KERNEL_NAME, roofline.KERNEL_SOURCES)]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs) + len(native.LIBRARIES)) as pool:
@@ -1074,6 +1083,7 @@ VP_SMALL_READS = 100_000  # the --rescue / --sam-out / checkpoint lane
 VP_EXACT_READS = 4_000  # the lane run on the card and on the CPU
 VP_READ_LEN = 150
 VP_ERR, VP_LOWQ, VP_TARGETS = 0.002, 0.05, 0.01
+PILEUP_MIN_QUALITY = 10  # the quality floor of phase 11's masked pileup
 # middles of the 8 seed windows _map_reads_both probes in a 150-base read
 # (forward offsets 0/17/34/51 and their reverse-complement counterparts):
 # a read with all eight substituted maps only through --rescue
@@ -1227,22 +1237,26 @@ def time_once(fn):
 
 def real_chunk(eng, path: str, device) -> dict:
     """The first CHUNK_READS reads of a lane mapped by the engine's own
-    steps: the gapped traceback's operands (queries, windows) and the
-    --rescue kernel's operand (the forward queries and their reverse
-    complements as one (2B, M) batch, every mapped read blanked to pad)."""
+    steps: the mapped codes, anchors and quality mask (the engine's
+    ``min_base_quality``, turned with the reads mapped reversed), the
+    gapped traceback's operands (queries, windows) and the --rescue
+    kernel's operand (the forward queries and their reverse complements as
+    one (2B, M) batch, every mapped read blanked to pad)."""
     import torch
 
     from mini_parallel_tpu_torch.io import fastq
     from mini_parallel_tpu_torch.models import variant_prep as vp
     from mini_parallel_tpu_torch.ops import encode
 
-    chunks = fastq.iter_flat_chunks(path, CHUNK_READS)
-    flat, offs = next(chunks)
+    chunks = fastq.iter_flat_chunks_with_quals(path, CHUNK_READS)
+    flat, offs, qflat, qoffs = next(chunks)
     chunks.close()
     arr, lens, pad = eng._prep_batch_flat(flat, offs)
+    qual_ok = torch.from_numpy(eng._qual_mask_flat(qflat, qoffs, pad)
+                               ).to(device)
     lens = torch.from_numpy(np.asarray(lens, np.int32)).to(device)
     idx = eng.index
-    codes, starts, mapped, _ = vp._map_codes_batch(
+    codes, starts, mapped, flipped = vp._map_codes_batch(
         encode.ascii_to_code(torch.from_numpy(arr).to(device)), lens,
         idx.sorted_keys, idx.sorted_pos, idx.ref_ascii_dev, vp.SEED_K, False,
         eng.rescue_min_frac)
@@ -1251,7 +1265,10 @@ def real_chunk(eng, path: str, device) -> dict:
         codes, lens, starts, mapped, idx.ref_ascii_dev, G,
         pad + 2 * eng.window_margin, eng.window_margin)
     both = torch.cat([codes, vp._revcomp_codes(codes, lens)])
-    return {"queries": queries, "windows": windows, "lens": lens,
+    qual_ok = torch.where(flipped[:, None], vp._reverse_prefix(qual_ok, lens),
+                          qual_ok)
+    return {"codes": codes, "starts": starts, "qual_ok": qual_ok,
+            "queries": queries, "windows": windows, "lens": lens,
             "mapped": mapped,
             "rescue": vp._codes_to_ascii(both, lens.repeat(2),
                                          keep=(~mapped).repeat(2))}
@@ -1502,6 +1519,76 @@ def phase_moves_compare(rng, chunk: dict, gaps: tuple, device) -> dict:
     return out
 
 
+def phase_pileup_compare(eng, chunk: dict, gaps: tuple, device) -> dict:
+    """csrc/pileup.cu == the plain torch route on the card, exactly, at the
+    main path's chunk: the real --gapped chunk's affine traceback positions
+    (10,000 x 152), without a quality mask (the engine's default) and with
+    the chunk's --min-base-quality mask. Each call is one launch into a
+    zero accumulator whose trash slot stays 0. Times the kernel, the plain
+    route and the plain route's ``index_add_`` alone (the library's
+    scatter) on each, and counts the bytes a call needs: its inputs once,
+    and each 32-byte sector of the accumulator that takes a count, read
+    and written once (a floor: a sector evicted between two of its adds is
+    read again)."""
+    import torch
+
+    from mini_parallel_tpu_torch.models import variant_prep as vp
+    from mini_parallel_tpu_torch.ops import pileup_cuda
+
+    run = pileup_cuda.pileup_positions_cuda
+    idx = eng.index
+    G = len(idx.ref_codes)
+    codes, lens, mapped = chunk["codes"], chunk["lens"], chunk["mapped"]
+    B, L = codes.shape
+    positions = vp._traceback_positions(
+        codes, lens, chunk["starts"], mapped, idx.ref_ascii_dev, G,
+        L + 2 * eng.window_margin, eng.window_margin, "affine", *gaps)
+    out = {"max_err": 0}
+    for key, label, qual_ok in (
+            ("unmasked", "no quality mask", None),
+            ("masked", f"--min-base-quality {eng.min_base_quality}",
+             chunk["qual_ok"])):
+        got, want = vp._new_pileup(G, device), vp._new_pileup(G, device)
+        launches = run.launches
+        run(codes, positions, G, qual_ok, got)
+        bins = vp._pileup_bins(codes, positions, G, qual_ok)
+        ones = torch.ones(bins.shape[0], dtype=torch.int32, device=device)
+        want.index_add_(0, bins, ones)
+        torch.cuda.synchronize()
+        err = int((got[:-1] - want[:-1]).abs().max())
+        trash = int(got[-1])
+        events = int(got[:-1].sum())
+        sectors = int((got[:-1].nonzero().squeeze(1) // 8)
+                      .unique_consecutive().numel())  # 8 int32 a sector
+        nbytes = float(B * L * (1 + positions.element_size()
+                                + (qual_ok is not None)) + 64 * sectors)
+        out["max_err"] = max(out["max_err"], err, trash)
+        print(f"[11 pileup] {label}, the --gapped chunk {B} x {L} "
+              f"({positions.dtype} positions): kernel == plain {err == 0} "
+              f"(max_abs_err {err}), trash slot {trash}, launches "
+              f"{run.launches - launches}; {events} counts of {bins.numel()} "
+              f"plain entries ({int((bins == G * 7).sum())} to the trash "
+              f"slot), {sectors} sectors touched", flush=True)
+        check(err == 0 and trash == 0 and run.launches == launches + 1,
+              f"pileup kernel != plain on the --gapped chunk, {label}")
+        scratch = vp._new_pileup(G, device)
+        ms = statistics.median(time_samples(
+            lambda: run(codes, positions, G, qual_ok, scratch), 20))
+        plain_ms = statistics.median(time_samples(
+            lambda: vp._pileup_positions_plain(codes, positions, G, qual_ok,
+                                               scratch), 1, 3))
+        library_ms = statistics.median(time_samples(
+            lambda: scratch.index_add_(0, bins, ones), 1, 5))
+        print(f"[12 time] pileup, {label}: kernel {ms:.4f} ms (median of "
+              f"{REPEATS}), plain route {plain_ms:.4f} ms, its index_add_ "
+              f"alone {library_ms:.4f} ms; bytes {nbytes:.0f} (inputs "
+              f"{nbytes - 64 * sectors:.0f}, sectors {64 * sectors})",
+              flush=True)
+        out[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                    "bytes": nbytes}
+    return out
+
+
 ALIGN_INPUTS = ((CHUNK_READS, 152, 184, 6), (64, 300, 700, 3))  # B M N golden
 
 
@@ -1632,14 +1719,15 @@ def phase_variant_paths(fx: dict, env_path: str, tmp: str, device) -> dict:
     import torch
 
     from mini_parallel_tpu_torch.models import variant_prep as vp
-    from mini_parallel_tpu_torch.ops import sw_cuda
+    from mini_parallel_tpu_torch.ops import pileup_cuda, sw_cuda
     from mini_parallel_tpu_torch.ops import sw_traceback_cuda as tbc
     from mini_parallel_tpu_torch.utils.config import Config
 
     report_engine(13)
     counters = {"sw_vs_ref": sw_cuda.sw_vs_ref_batch_cuda,
                 "sw_moves": tbc.sw_moves_batch_cuda,
-                "sw_affine_moves": tbc.sw_affine_moves_batch_cuda}
+                "sw_affine_moves": tbc.sw_affine_moves_batch_cuda,
+                "pileup": pileup_cuda.pileup_positions_cuda}
 
     def zero():
         for fn in counters.values():
@@ -1674,6 +1762,9 @@ def phase_variant_paths(fx: dict, env_path: str, tmp: str, device) -> dict:
               f"% | launches {n}", flush=True)
         check(snp >= 0.95, f"{mode}: SNP recall {snp:.4f} < 0.95")
         check(n["sw_vs_ref"] == 0, f"{mode} launched the rescue kernel")
+        check(n["pileup"] == chunks, f"{mode}: {n['pileup']} pileup "
+              f"launches for {chunks} chunks")
+        launches["pileup"] = n["pileup"]  # the same in every mode
         if kernel:
             launches[kernel] = n[kernel]
             check(n[kernel] == chunks, f"{mode}: {n[kernel]} launches for "
@@ -1706,7 +1797,7 @@ def phase_variant_paths(fx: dict, env_path: str, tmp: str, device) -> dict:
           f"start | launches {n} | {wall:.2f} s", flush=True)
     check(len(recs) == VP_SMALL_READS, "--sam-out wrote not one record per read")
     check(rate >= 0.9, f"--rescue mapped {rate:.4f} < 0.9 of its targets")
-    check(n["sw_vs_ref"] == small_chunks and n["sw_moves"] == small_chunks,
+    check(n["sw_vs_ref"] == n["sw_moves"] == n["pileup"] == small_chunks,
           f"--rescue launches {n} for {small_chunks} chunks")
 
     cfg = Config(chunk_size_reads=CHUNK_READS)
@@ -1754,7 +1845,8 @@ def phase_variant_paths(fx: dict, env_path: str, tmp: str, device) -> dict:
           f"through the CLI: {n['sw_moves']} traceback launches for the "
           f"{small_chunks - 4} chunks left, pileup == the clean run's {same}, "
           f"mapped {meta['mapped_reads']} == {clean.mapped_reads}", flush=True)
-    check(n["sw_moves"] == small_chunks - 4, "the CLI did not resume at chunk 4")
+    check(n["sw_moves"] == n["pileup"] == small_chunks - 4,
+          "the CLI did not resume at chunk 4")
     check(same and meta["mapped_reads"] == clean.mapped_reads
           and meta["chunks_done"] == small_chunks,
           "the resumed pileup differs from the clean run's")
@@ -2478,7 +2570,12 @@ def traced_kernels() -> dict:
     parts of the kernel's name in a trace, demangled or mangled; the
     template arguments tell the forms apart). sw_long's linear and affine
     wrappers launch one kernel template."""
-    from mini_parallel_tpu_torch.ops import pairhmm_cuda, sw_cuda, sw_long
+    from mini_parallel_tpu_torch.ops import (
+        pairhmm_cuda,
+        pileup_cuda,
+        sw_cuda,
+        sw_long,
+    )
     from mini_parallel_tpu_torch.ops import sw_traceback_cuda as tbc
     from mini_parallel_tpu_torch.tools import roofline
 
@@ -2498,6 +2595,7 @@ def traced_kernels() -> dict:
         "sw_long": ((sw_long.sw_strip_cuda, sw_long.sw_affine_strip_cuda),
                     ("sw_group_kernel",)),
         "roofline_chain": ((roofline.roofline_chain_cuda,), ("chain_kernel",)),
+        "pileup": ((pileup_cuda.pileup_positions_cuda,), ("pileup_kernel",)),
     }
 
 
@@ -2630,7 +2728,8 @@ def phase_profiles(tmp: str, env_path: str, results_dir: str, fx: dict,
     run = profiled_run("--variant-prep --gapped --gap-model affine "
                        "--genotype", vp, os.path.join(base, "genotype"),
                        {"sw_affine_moves": None, "pairhmm": 1,
-                        "pairhmm_f64": 1})
+                        "pairhmm_f64": 1,
+                        "pileup": 2 * -(-VP_LANE_READS // CHUNK_READS)})
     out["genotype"] = dict(run, plain_wall=genotype_wall)
 
     km = ["--kmer", f"{fx['L1']},{fx['L2']}", "--env", env_path]
@@ -2992,7 +3091,8 @@ def phase_parallel(rng, tmp: str, fx: dict, main_pairs, total_bases: int,
               f"mapped {runs[1]['mapped']}, genotyped {runs[1]['called']} | "
               f"launches {n} | {time.perf_counter() - t0:.2f} s", flush=True)
         check(same, f"--variant-prep {gap_model} on the mesh")
-        need(n, ["sw_vs_ref", moves, "pairhmm"], f"--variant-prep {gap_model}")
+        need(n, ["sw_vs_ref", moves, "pairhmm", "pileup"],
+             f"--variant-prep {gap_model}")
 
     # --kmer on the 100,000-read lane: summary and the full table (the
     # dump's lines are written from it)
@@ -3257,17 +3357,20 @@ def report_shares(kernels: list[dict], peak_instr: float) -> None:
 
 def kernel_entry(name: str, replaces: str, source: str, launches: int,
                  max_err, ms: float, plain_ms: float, cells: float,
-                 nbytes: float, rate: float | None = None) -> dict:
+                 nbytes: float, rate: float | None = None,
+                 library_ms: float | None = None) -> dict:
     """One kernel's line of the JSON result, with its bound computed from
     this run's cells and bytes: the larger of cells x OPS_PER_CELL over
-    ``rate`` (the int32 rate unless given) and bytes over the HBM rate."""
+    ``rate`` (the int32 rate unless given) and bytes over the HBM rate. A
+    kernel of no DP cells (``cells`` 0) is bound by its bytes alone."""
     from mini_parallel_tpu_torch.tools.roofline import (
         HBM_BYTES_PER_S,
         INT32_OPS_PER_S,
         OPS_PER_CELL,
     )
 
-    ops_ms = cells * OPS_PER_CELL[name] / (rate or INT32_OPS_PER_S) * 1e3
+    ops_ms = (cells * OPS_PER_CELL[name] / (rate or INT32_OPS_PER_S) * 1e3
+              if cells else 0.0)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {"name": name, "route": "cuda",
             "source": f"mini_parallel_tpu_torch/csrc/{source}",
@@ -3275,7 +3378,7 @@ def kernel_entry(name: str, replaces: str, source: str, launches: int,
             "launches": launches, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None}
+            "library_ms": library_ms}
 
 
 PR_SET_CHILD_SUBREAPER = 36  # linux/prctl.h
@@ -3402,11 +3505,15 @@ def drive() -> int:
             rng, tmp, env_path, results_dir, total_bases, device)
         fx = phase_variant_fixtures(rng, tmp)
         cfg = Config(chunk_size_reads=CHUNK_READS)
-        eng = VariantPrepEngine(fx["contigs"], cfg, device=device)
+        eng = VariantPrepEngine(fx["contigs"], cfg,
+                                min_base_quality=PILEUP_MIN_QUALITY,
+                                device=device)
         chunk = real_chunk(eng, fx["L1"], device)
         vs_ref = phase_vs_ref_compare(rng, eng, fx, chunk, device)
         moves = phase_moves_compare(rng, chunk, (cfg.gap_open,
                                                  cfg.gap_extend), device)
+        pileup = phase_pileup_compare(eng, chunk, (cfg.gap_open,
+                                                   cfg.gap_extend), device)
         phase_align(np.random.default_rng(SEED + 12),
                     (cfg.gap_open, cfg.gap_extend), device)
         del eng, chunk
@@ -3454,6 +3561,11 @@ def drive() -> int:
         kernel_entry("roofline_chain", "tools/roofline.py:72", "roofline.cu",
                      chain["launches"], 0, chain["ms"], chain["plain_ms"],
                      chain["steps"], chain["bytes"]),
+        kernel_entry("pileup", "models/variant_prep.py:279", "pileup.cu",
+                     vp_launches["pileup"], pileup["max_err"],
+                     pileup["masked"]["ms"], pileup["masked"]["plain_ms"], 0,
+                     pileup["masked"]["bytes"],
+                     library_ms=pileup["masked"]["library_ms"]),
     ]
     report_shares(kernels, chain["peak_instr"])
     print(f"[24 stop] processes still running below the script at its end:"

@@ -9,11 +9,14 @@ The counterpart of mini_parallel_tpu/models/variant_prep.py.
   seed-missed reads by exhaustive SW against the whole reference (the
   ``csrc/sw_vs_ref.cu`` kernel on the card).
 - **pileup**: mapped reads add their base codes into a (G, 7) int32 count
-  matrix (A C G T N, deletion and insertion evidence) by ``index_add_`` on
-  int64 bins ``pos * 7 + column``. The engine adds each chunk into ONE
-  device accumulator in place (a flat (G * 7 + 1,) buffer whose last slot
-  takes the masked entries), where the JAX package builds a (G, 7) array
-  per chunk and adds it.
+  matrix (A C G T N, deletion and insertion evidence), on the card by one
+  launch a chunk of ``csrc/pileup.cu``, which adds only the real counts; on
+  the CPU by ``index_add_`` on int64 bins ``pos * 7 + column`` (the plain
+  route). The engine adds each chunk into ONE device accumulator in place
+  (a flat (G * 7 + 1,) buffer whose last slot takes the plain route's
+  masked entries), where the JAX package builds a (G, 7) array per chunk
+  and adds it. The ungapped path piles up through the same route, at the
+  positions its anchors imply.
 - **gapped** (``gapped=True``): each mapped read is aligned against its
   anchored reference window with traceback (``csrc/sw_moves.cu`` on the
   card, linear or affine gaps), and its bases pile up at the aligned
@@ -60,6 +63,10 @@ from mini_parallel_tpu_torch.ops import encode
 from mini_parallel_tpu_torch.ops import packed as packedmod
 from mini_parallel_tpu_torch.ops import pairhmm
 from mini_parallel_tpu_torch.ops.pairhmm import pairhmm_log10_padded
+from mini_parallel_tpu_torch.ops.pileup_cuda import (
+    PILEUP_COLS,
+    pileup_positions_cuda,
+)
 from mini_parallel_tpu_torch.ops.sw_cuda import sw_vs_ref_batch_best
 from mini_parallel_tpu_torch.ops.sw_traceback import (
     sw_affine_positions_batch_best,
@@ -84,7 +91,6 @@ CONTIG_SPACER_N = 512
 
 N_SEED_TRIES = 4  # seed offsets attempted per read (0, stride, 2*stride, ...)
 SEED_STRIDE = 17  # coprime-ish with k = 15, so one SNP cannot kill two seeds
-PILEUP_COLS = 7  # A C G T N, deletion evidence, insertion evidence
 
 
 def concat_contigs(contigs: dict[str, bytes],
@@ -258,7 +264,8 @@ def _map_reads_both(codes: torch.Tensor, lengths: torch.Tensor,
 
 def _new_pileup(G: int, device: torch.device) -> torch.Tensor:
     """A zero pileup accumulator: flat (G * 7 + 1,) int32, the last slot
-    taking every masked entry; :func:`pileup_view` is its (G, 7) part."""
+    taking the plain route's masked entries (the kernel never writes it);
+    :func:`pileup_view` is its (G, 7) part."""
     return torch.zeros(G * PILEUP_COLS + 1, dtype=torch.int32, device=device)
 
 
@@ -266,13 +273,15 @@ def pileup_view(acc: torch.Tensor) -> torch.Tensor:
     return acc[:-1].view(-1, PILEUP_COLS)
 
 
-def _add_counts(acc: torch.Tensor, bins: torch.Tensor) -> torch.Tensor:
-    """acc[bins] += 1 for every entry (int64 bins; the trash slot takes the
-    masked ones). Integer adds commute, so the order never shows."""
-    bins = bins.reshape(-1)
-    acc.index_add_(0, bins, torch.ones(bins.shape[0], dtype=acc.dtype,
-                                       device=acc.device))
-    return acc
+def _ungapped_positions(lengths: torch.Tensor, starts: torch.Tensor,
+                        mapped: torch.Tensor, L: int) -> torch.Tensor:
+    """(B, L) int64 reference positions of ungapped reads: ``start + col``
+    for each column of a mapped read, -1 past its length and on unmapped
+    rows. A row's positions >= 0 form one unbroken run, so the pileup finds
+    no deletion or insertion in them."""
+    col = torch.arange(L, dtype=torch.int64, device=starts.device)[None, :]
+    keep = mapped[:, None] & (col < lengths.to(torch.int64)[:, None])
+    return torch.where(keep, starts.to(torch.int64)[:, None] + col, -1)
 
 
 def _pileup_batch(codes: torch.Tensor, lengths: torch.Tensor,
@@ -283,20 +292,11 @@ def _pileup_batch(codes: torch.Tensor, lengths: torch.Tensor,
 
     ``acc`` (a :func:`_new_pileup` buffer) is updated in place; without it
     a fresh one is made. ``qual_ok`` (B, L) bool excludes low-quality bases
-    from the counts (mapping still uses every base). Bins are int64: the
-    JAX package's int32 ``pos * 5 + code`` wraps past G = 429,496,729."""
-    B, L = codes.shape
-    dev = codes.device
-    acc = _new_pileup(G, dev) if acc is None else acc
-    col = torch.arange(L, dtype=torch.int64, device=dev)[None, :]
-    pos = starts.to(torch.int64)[:, None] + col
-    valid = (mapped[:, None] & (col < lengths.to(torch.int64)[:, None])
-             & (pos >= 0) & (pos < G) & (codes <= 3))
-    if qual_ok is not None:
-        valid = valid & qual_ok
-    bins = torch.where(valid, pos * PILEUP_COLS + codes.to(torch.int64),
-                       G * PILEUP_COLS)
-    return pileup_view(_add_counts(acc, bins))
+    from the counts (mapping still uses every base). The bases pile up at
+    the positions their anchors imply (:func:`_ungapped_positions`), by
+    :func:`_pileup_positions`."""
+    positions = _ungapped_positions(lengths, starts, mapped, codes.shape[1])
+    return _pileup_positions(codes, positions, G, qual_ok, acc)
 
 
 def _pileup_positions(codes: torch.Tensor, positions: torch.Tensor, G: int,
@@ -311,10 +311,35 @@ def _pileup_positions(codes: torch.Tensor, positions: torch.Tensor, G: int,
     deletion at the first skipped site; an unaligned run between aligned
     bases is an insertion, counted once at the site after its left anchor.
     A gap event counts only when its flanking bases pass the quality
-    gate."""
+    gate. CPU tensors take :func:`_pileup_positions_plain`; any other
+    device the kernel (``ops/pileup_cuda.py``), or an error."""
+    acc = _new_pileup(G, codes.device) if acc is None else acc
+    if codes.device.type == "cpu":
+        _pileup_positions_plain(codes, positions, G, qual_ok, acc)
+    else:
+        pileup_positions_cuda(codes, positions, G, qual_ok, acc)
+    return pileup_view(acc)
+
+
+def _pileup_positions_plain(codes: torch.Tensor, positions: torch.Tensor,
+                            G: int, qual_ok: torch.Tensor | None,
+                            acc: torch.Tensor) -> None:
+    """:func:`_pileup_positions` in torch ops, on any device: the bins of
+    :func:`_pileup_bins` added by ``index_add_``. Integer adds commute, so
+    the order never shows."""
+    bins = _pileup_bins(codes, positions, G, qual_ok)
+    acc.index_add_(0, bins, torch.ones(bins.shape[0], dtype=acc.dtype,
+                                       device=acc.device))
+
+
+def _pileup_bins(codes: torch.Tensor, positions: torch.Tensor, G: int,
+                 qual_ok: torch.Tensor | None) -> torch.Tensor:
+    """The flat accumulator's slot of every entry of the plain route: three
+    (B, L) sets of int64 bins (bases, deletions, insertions) joined, each
+    masked entry sent to the trash slot ``G * 7``. Bins are int64: the JAX
+    package's int32 ``pos * 5 + code`` wraps past G = 429,496,729."""
     B, L = codes.shape
     dev = codes.device
-    acc = _new_pileup(G, dev) if acc is None else acc
     trash = G * PILEUP_COLS
     pos = positions.to(torch.int64)
     valid = (positions >= 0) & (positions < G) & (codes <= 3)
@@ -345,8 +370,7 @@ def _pileup_positions(codes: torch.Tensor, positions: torch.Tensor, G: int,
     ins_site = prev + 1
     inss = torch.where(ins_here & (ins_site < G),
                        ins_site * PILEUP_COLS + 6, trash)
-    return pileup_view(_add_counts(acc, torch.cat(
-        [base.reshape(-1), dels.reshape(-1), inss.reshape(-1)])))
+    return torch.cat([base.reshape(-1), dels.reshape(-1), inss.reshape(-1)])
 
 
 _BASE_ASCII = np.frombuffer(b"ACGTN", np.uint8)
@@ -862,7 +886,14 @@ class VariantPrepEngine:
                     progress(f"  {res.total_reads} reads, {shown}")
             with spans.span("variant.drain.sync"):
                 res.mapped_reads += _drain(deferred)
+                # while recording: summed on the device ahead of the copy,
+                # read after it; by rows in int32 first, since a sum to
+                # int64 of the whole view would cast all of it first
+                events = (pileup_view(pileup).sum(dim=1, dtype=torch.int32)
+                          .sum() if spans.recording() else None)
                 res.pileup = pileup_view(pileup).cpu().numpy()
+                if events is not None:
+                    spans.count("variant.pileup.events", int(events))
             with spans.span("variant.extract"):
                 res.candidates = self._extract_candidates(res.pileup)
         res.contigs = self.contig_table()

@@ -186,6 +186,12 @@ def count(name: str, n: int = 1) -> None:
         buffer.counters[name] = buffer.counters.get(name, 0) + n
 
 
+def recording() -> bool:
+    """Whether the recorder is on: a counter whose value costs work is
+    computed only then."""
+    return _buffer is not None
+
+
 def start() -> None:
     """Turn the recorder on with nothing recorded. Under a recording torch
     profiler, also place the clock anchor in its trace."""

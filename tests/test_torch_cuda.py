@@ -14,7 +14,7 @@ import torch
 
 from mini_parallel_tpu_torch.io import fastq
 from mini_parallel_tpu_torch.models.alignment import AlignmentEngine
-from mini_parallel_tpu_torch.ops import encode, sw, sw_cuda, sw_long
+from mini_parallel_tpu_torch.ops import encode, pileup_cuda, sw, sw_cuda, sw_long
 from mini_parallel_tpu_torch.utils.config import Config
 
 pytestmark = pytest.mark.cuda
@@ -566,7 +566,8 @@ def test_variant_prep_on_the_card_matches_cpu(tmp_path, cuda_device, kw):
             f.write(b"@r%d\n%s\n+\n%s\n" % (i, r, q.encode()))
     cfg = Config(chunk_size_reads=128)
     counters = (sw_cuda.sw_vs_ref_batch_cuda, tbc.sw_moves_batch_cuda,
-                tbc.sw_affine_moves_batch_cuda)
+                tbc.sw_affine_moves_batch_cuda,
+                pileup_cuda.pileup_positions_cuda)
     before = [fn.launches for fn in counters]
     out = []
     for k, dev in enumerate((cuda_device, torch.device("cpu"))):
@@ -581,13 +582,110 @@ def test_variant_prep_on_the_card_matches_cpu(tmp_path, cuda_device, kw):
     assert gpu.candidates == cpu.candidates and gsam == csam
     moved = [fn.launches - b for fn, b in zip(counters, before)]
     chunks = 4  # 400 reads in chunks of 128
+    assert moved[3] == chunks  # the pileup kernel, ungapped or gapped
     if kw.get("rescue"):
         assert moved[0] == chunks and moved[1] == chunks
         assert gpu.mapped_reads >= 390
     elif kw.get("gapped"):
         assert moved[2] == chunks
     else:
-        assert moved == [0, 0, 0]
+        assert moved[:3] == [0, 0, 0]
+
+
+def _pileup_case(rng, B, L, G, dtype):
+    """(codes, positions, qual_ok) numpy arrays like a traceback's: runs
+    of positions with deletions (jumps of 2-4), insertions (-1 runs that
+    do not advance), soft clips at both ends, some rows with no aligned
+    base, rows from 0 and rows running to and past G, negative positions
+    other than -1, and row 3 (where there is one) with a deletion site at
+    G and an insertion after G - 1."""
+    start = rng.integers(-L // 4, G - L // 2, B)
+    start[::5] = rng.integers(G - L, G + 3, len(start[::5]))
+    start[1::11] = 0
+    ins = rng.random((B, L)) < 0.05
+    dl = np.where(rng.random((B, L)) < 0.04, rng.integers(1, 4, (B, L)), 0)
+    adv = np.where(ins, 0, 1 + dl)
+    pos = start[:, None] + np.cumsum(adv, 1) - adv[:, :1]
+    pos[ins] = -1
+    col = np.arange(L)[None, :]
+    pos[col < rng.integers(0, 6, B)[:, None]] = -1
+    pos[col >= L - rng.integers(0, 6, B)[:, None]] = -1
+    pos[6::7] = -1  # no aligned base: an unmapped row
+    low = pos < -1
+    pos[low] = rng.choice([-1, -3], int(low.sum()))
+    if B > 3 and L > 30:
+        pos[3, 10], pos[3, 11] = G - 1, G + 1
+        pos[3, 20], pos[3, 21], pos[3, 22] = G - 1, -1, G
+    codes = rng.integers(0, 6, (B, L)).astype(np.uint8)
+    return codes, pos.astype(dtype), rng.random((B, L)) < 0.9
+
+
+@pytest.mark.parametrize("B", [1, 10_000])
+@pytest.mark.parametrize("L", [62, 152, 300])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_pileup_kernel_matches_plain(cuda_device, B, L, dtype):
+    """Two batches into one accumulator, with and then without a quality
+    mask: the kernel's counts equal the plain route's on the card bit for
+    bit, its trash slot stays 0, and each call is one launch."""
+    from mini_parallel_tpu_torch.models import variant_prep as vp
+
+    rng = np.random.default_rng(B + L)
+    G = 50_000 if B > 1 else 2000
+    got = vp._new_pileup(G, cuda_device)
+    want = vp._new_pileup(G, cuda_device)
+    for with_qual in (True, False):
+        codes, pos, qual = (torch.from_numpy(x).to(cuda_device)
+                            for x in _pileup_case(rng, B, L, G, dtype))
+        q = qual if with_qual else None
+        launches = pileup_cuda.pileup_positions_cuda.launches
+        view = vp._pileup_positions(codes, pos, G, q, acc=got)
+        torch.cuda.synchronize()
+        assert pileup_cuda.pileup_positions_cuda.launches == launches + 1
+        assert view.data_ptr() == got.data_ptr()
+        vp._pileup_positions_plain(codes, pos, G, q, want)
+        assert torch.equal(vp.pileup_view(got), vp.pileup_view(want))
+        assert int(got[-1]) == 0
+    counts = vp.pileup_view(got)
+    assert int(counts[:, :4].sum()) > 0
+    if B > 1:
+        assert int(counts[:, 5].sum()) > 0 and int(counts[:, 6].sum()) > 0
+
+
+def test_pileup_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    """On the card (the CPU test of the same name covers the formats): CPU
+    positions beside a card accumulator raise, and an empty batch returns
+    the accumulator untouched without a launch."""
+    G = 10
+    codes = torch.zeros((4, 8), dtype=torch.uint8, device=cuda_device)
+    pos = torch.zeros((4, 8), dtype=torch.int32, device=cuda_device)
+    acc = torch.zeros(G * 7 + 1, dtype=torch.int32, device=cuda_device)
+    run = pileup_cuda.pileup_positions_cuda
+    with pytest.raises(ValueError, match="CUDA"):
+        run(codes, pos.cpu(), G, None, acc)
+    launches = run.launches
+    assert run(codes[:0], pos[:0], G, None, acc) is acc
+    assert run.launches == launches and int(acc.sum()) == 0
+
+
+def test_ungapped_pileup_on_the_card_matches_cpu(cuda_device):
+    """The ungapped pileup (anchors, lengths, quality mask) through the
+    kernel equals the CPU's counts, with no gap event."""
+    from mini_parallel_tpu_torch.models import variant_prep as vp
+
+    rng = np.random.default_rng(3)
+    B, L, G = 3000, 152, 20_000
+    args = [torch.from_numpy(rng.integers(0, 6, (B, L)).astype(np.uint8)),
+            torch.from_numpy(rng.integers(0, L + 1, B).astype(np.int32)),
+            torch.from_numpy(rng.integers(-20, G, B).astype(np.int32)),
+            torch.from_numpy(rng.random(B) < 0.8)]
+    qual = torch.from_numpy(rng.random((B, L)) < 0.9)
+    launches = pileup_cuda.pileup_positions_cuda.launches
+    got = vp._pileup_batch(*(t.to(cuda_device) for t in args), G,
+                           qual.to(cuda_device))
+    assert pileup_cuda.pileup_positions_cuda.launches == launches + 1
+    want = vp._pileup_batch(*args, G, qual)
+    assert torch.equal(got.cpu(), want)
+    assert int(want[:, 5:].sum()) == 0 and int(want[:, :4].sum()) > 0
 
 
 def test_reference_index_on_the_card_matches_cpu(cuda_device):

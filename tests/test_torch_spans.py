@@ -208,6 +208,31 @@ def test_variant_prep_job_records_its_stages_in_order(tmp_path, recorder):
     assert sorted(s.chunk for s in steps) == [0, 1, 2]
 
 
+def test_pileup_events_are_counted_once_a_job(tmp_path, recorder):
+    """``variant.pileup.events``, taken at the drain, is the pileup's total:
+    two jobs in one recording count both totals, each once; the recorder
+    says it is on only between start and stop, the only time the total is
+    summed."""
+    rng = np.random.default_rng(1)
+    ref = random_dna(rng, 1500)
+    reads = [ref[s:s + 60] for s in rng.integers(0, 1440, 30).tolist()]
+    path = str(tmp_path / "lane.fastq.gz")
+    fastq.write_fastq(path, reads)
+    cfg = Config(chunk_size_reads=16, read_pad=64)
+    assert not recorder.recording()
+    recorder.start()
+    assert recorder.recording()
+    totals = []
+    for gapped in (True, False):
+        eng = vp.VariantPrepEngine(ref, cfg, gapped=gapped, device=CPU)
+        totals.append(int(eng.process_file(path).pileup.sum()))
+    rec = recorder.stop()
+    assert not recorder.recording()
+    drains = [s for s in rec.spans if s.name == "variant.drain.sync"]
+    assert len(drains) == 2 and totals[0] > 0
+    assert rec.counters["variant.pileup.events"] == sum(totals)
+
+
 def test_threads_record_without_losing_a_span_or_a_count(recorder):
     """More threads than cores open nested spans and count at once, with a
     short switch interval: every span and count is kept, and each span's

@@ -476,6 +476,67 @@ def test_pileups_match_jax(rng):
         + np.asarray(jvp._pileup_positions(jc, jp, G)))
 
 
+def test_ungapped_positions_pile_up_bases_and_no_gap_event(rng):
+    """The positions the ungapped path hands the pileup: each mapped
+    read's bases at start + column, negative starts and starts near G
+    included; the counts equal a loop over the bases, and no deletion or
+    insertion is ever found in them."""
+    B, L, G = 60, 40, 300
+    codes = rng.integers(0, 6, (B, L)).astype(np.uint8)
+    lens = rng.integers(0, L + 1, B).astype(np.int32)
+    starts = rng.integers(-30, G + 5, B).astype(np.int32)
+    mapped = rng.random(B) < 0.8
+    qual = rng.random((B, L)) < 0.9
+    pos = vp._ungapped_positions(torch.from_numpy(lens),
+                                 torch.from_numpy(starts),
+                                 torch.from_numpy(mapped), L)
+    assert pos.dtype == torch.int64
+    for q in (None, qual):
+        want = np.zeros((G, 7), np.int32)
+        for b in np.flatnonzero(mapped):
+            for i in range(lens[b]):
+                p = int(starts[b]) + i
+                if 0 <= p < G and codes[b, i] <= 3 and (q is None or q[b, i]):
+                    want[p, codes[b, i]] += 1
+        tq = None if q is None else torch.from_numpy(q)
+        got = vp._pileup_positions(torch.from_numpy(codes), pos, G, tq)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert want[:, :4].sum() > 0
+        np.testing.assert_array_equal(
+            vp._pileup_batch(torch.from_numpy(codes), torch.from_numpy(lens),
+                             torch.from_numpy(starts),
+                             torch.from_numpy(mapped), G, tq).numpy(), want)
+
+
+def test_pileup_wrapper_refuses_what_the_kernel_does_not_take():
+    """The kernel's wrapper checks before it builds anything: CPU tensors,
+    a wrong dtype or shape, a non-contiguous operand and a wrong
+    accumulator raise, and nothing launches."""
+    from mini_parallel_tpu_torch.ops import pileup_cuda
+
+    G = 10
+    codes = torch.zeros((4, 8), dtype=torch.uint8)
+    pos = torch.zeros((4, 8), dtype=torch.int64)
+    acc = vp._new_pileup(G, CPU)
+    run = pileup_cuda.pileup_positions_cuda
+    launches = run.launches
+    for args, match in [
+            ((codes, pos, G, None, acc), "CUDA"),
+            ((codes.int(), pos, G, None, acc), "uint8"),
+            ((codes, pos.float(), G, None, acc), "int32 or int64"),
+            ((codes, pos[:, :7], G, None, acc), "shape"),
+            ((codes, pos, G, torch.ones((4, 8), dtype=torch.uint8), acc),
+             "qual_ok"),
+            ((codes, pos, G, None, acc.long()), "acc must be"),
+            ((codes, pos, 0, None, acc), "positive"),
+            ((codes.t(), pos.t(), G, None, acc), "contiguous"),
+            ((codes, pos, G, torch.ones((8, 4), dtype=torch.bool).t(), acc),
+             "contiguous")]:
+        with pytest.raises(ValueError, match=match):
+            run(*args)
+    assert run.launches == launches and int(acc.sum()) == 0
+
+
 def test_revcomp_reverse_prefix_codes_to_ascii_match_jax(rng):
     B, L = 30, 37
     codes = torch.from_numpy(rng.integers(0, 7, (B, L)).astype(np.uint8))
