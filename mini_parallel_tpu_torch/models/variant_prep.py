@@ -398,26 +398,39 @@ def _rescue_unmapped(codes, rc_codes, lens, ref_ascii, starts, mapped,
     the score clears ``2 * rescue_min_frac * len`` (float32, truncated).
     Mapped reads are blanked to pad, which the vs-ref kernel skips. Both
     strands go through one launch as one (2B, M) batch: the kernel's time
-    is set by the reference sweep, not by the number of reads."""
-    unm = ~mapped
-    B = codes.shape[0]
-    scores, ends = sw_vs_ref_batch_best(
-        _codes_to_ascii(torch.cat([codes, rc_codes]), lens.repeat(2),
-                        keep=unm.repeat(2)), ref_ascii)
-    s_f, s_r = scores[:B], scores[B:]
-    p_f, p_r = ends[:B], ends[B:]
-    use_rc = s_r > s_f
-    s_best = torch.maximum(s_f, s_r)
-    p_best = torch.where(use_rc, p_r, p_f)
-    frac = torch.tensor(2.0 * rescue_min_frac, dtype=torch.float32,
-                        device=lens.device)
-    thresh = (frac * lens.to(torch.float32)).to(torch.int32)
-    good = unm & (s_best >= thresh.clamp_min(1))
-    anchor = (p_best - lens + 1).clamp_min(0)
-    rc_used = good & use_rc
-    new_codes = torch.where(rc_used[:, None], rc_codes, codes)
-    new_starts = torch.where(good, anchor, starts)
+    is set by the reference sweep, not by the number of reads. While the
+    recorder is on, counts the rows handed to the sweep
+    (``variant.rescue.rows``, two an unmapped read) and the reads rescued
+    (``variant.rescue.rescued``)."""
+    with spans.span("variant.rescue"):
+        unm = ~mapped
+        B = codes.shape[0]
+        scores, ends = sw_vs_ref_batch_best(
+            _codes_to_ascii(torch.cat([codes, rc_codes]), lens.repeat(2),
+                            keep=unm.repeat(2)), ref_ascii)
+        s_f, s_r = scores[:B], scores[B:]
+        p_f, p_r = ends[:B], ends[B:]
+        use_rc = s_r > s_f
+        s_best = torch.maximum(s_f, s_r)
+        p_best = torch.where(use_rc, p_r, p_f)
+        frac = torch.tensor(2.0 * rescue_min_frac, dtype=torch.float32,
+                            device=lens.device)
+        thresh = (frac * lens.to(torch.float32)).to(torch.int32)
+        good = unm & (s_best >= thresh.clamp_min(1))
+        anchor = (p_best - lens + 1).clamp_min(0)
+        rc_used = good & use_rc
+        new_codes = torch.where(rc_used[:, None], rc_codes, codes)
+        new_starts = torch.where(good, anchor, starts)
+        if spans.recording():
+            _count_rescue(unm, good)
     return new_codes, new_starts, mapped | good, rc_used
+
+
+def _count_rescue(unm: torch.Tensor, good: torch.Tensor) -> None:
+    """The rescue's two counters, read in one device sync."""
+    rows, rescued = torch.stack([unm.sum(), good.sum()]).tolist()
+    spans.count("variant.rescue.rows", 2 * rows)
+    spans.count("variant.rescue.rescued", rescued)
 
 
 def _reverse_prefix(rows: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
@@ -911,28 +924,39 @@ class VariantPrepEngine:
         rid = 0
         stream = fastq.iter_flat_chunks_multi(
             paths, self.cfg.chunk_size_reads, progress=progress)
-        with open(sam_out, "w") as f, fastq.prefetch(stream) as batches:
+        with open(sam_out, "w") as f, spans.span("variant.pass1"), \
+                fastq.prefetch(stream) as batches:
             _write_sam_header(f, self.contig_table())
-            for flat, offs in batches:
-                arr, lens, pad = self._prep_batch_flat(flat, offs)
-                pb = packedmod.pack_batch(arr, lens)
-                positions, codes, mapped, flipped = _gapped_map_step(
-                    *packedmod.device_args(pb, self.device), idx.sorted_keys,
-                    idx.sorted_pos, idx.ref_ascii_dev, G,
-                    pad + 2 * self.window_margin, self.window_margin,
-                    rescue=self.rescue, rescue_min_frac=self.rescue_min_frac,
-                    gap_model=self.gap_model, gap_open=self.cfg.gap_open,
-                    gap_extend=self.cfg.gap_extend)
-                _pileup_positions(codes, positions, G, acc=pileup)
-                rid, n_mapped = _write_sam_batch(
-                    f, flat, offs, positions.cpu().numpy(),
-                    codes.cpu().numpy(), mapped.cpu().numpy(),
-                    flipped.cpu().numpy(), self.contig_names,
-                    self.contig_offsets, rid)
+            for chunk, (flat, offs) in enumerate(batches):
+                with spans.span("variant.chunk", chunk):
+                    with spans.span("variant.prep"):
+                        arr, lens, pad = self._prep_batch_flat(flat, offs)
+                    with spans.span("variant.sam.step"):
+                        pb = packedmod.pack_batch(arr, lens)
+                        positions, codes, mapped, flipped = _gapped_map_step(
+                            *packedmod.device_args(pb, self.device),
+                            idx.sorted_keys, idx.sorted_pos,
+                            idx.ref_ascii_dev, G,
+                            pad + 2 * self.window_margin, self.window_margin,
+                            rescue=self.rescue,
+                            rescue_min_frac=self.rescue_min_frac,
+                            gap_model=self.gap_model,
+                            gap_open=self.cfg.gap_open,
+                            gap_extend=self.cfg.gap_extend)
+                        _pileup_positions(codes, positions, G, acc=pileup)
+                    with spans.span("variant.sam.sync"):
+                        host = [t.cpu().numpy()
+                                for t in (positions, codes, mapped, flipped)]
+                    with spans.span("variant.sam.write"):
+                        rid, n_mapped = _write_sam_batch(
+                            f, flat, offs, *host, self.contig_names,
+                            self.contig_offsets, rid)
                 res.total_reads += len(offs) - 1
                 res.mapped_reads += n_mapped
-        res.pileup = pileup_view(pileup).cpu().numpy()
-        res.candidates = self._extract_candidates(res.pileup)
+            with spans.span("variant.drain.sync"):
+                res.pileup = pileup_view(pileup).cpu().numpy()
+            with spans.span("variant.extract"):
+                res.candidates = self._extract_candidates(res.pileup)
         res.contigs = self.contig_table()
         res.seconds = time.perf_counter() - t0
         return res

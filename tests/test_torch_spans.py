@@ -233,6 +233,111 @@ def test_pileup_events_are_counted_once_a_job(tmp_path, recorder):
     assert rec.counters["variant.pileup.events"] == sum(totals)
 
 
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """One intra-op thread for the rescue's tests: the CPU rescue is many
+    small torch ops, and with a thread per core in each of the suite's
+    workers every op waits for threads the other workers hold (about 20x
+    slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+@pytest.fixture(scope="module")
+def isolate(tmp_path_factory, one_thread):
+    """A small isolate with absent and diverged reads (the benchmark's
+    ``ecoli_rescue`` cut small) and its plain reference, every
+    seed-missed read swept."""
+    from benchmark.tests.rescue_tiny import tiny_entry
+
+    entry = tiny_entry(str(tmp_path_factory.mktemp("isolate") / "in"))
+    ref = entry.reference()
+    ref.rescue(np.flatnonzero(~ref.seed_mapped))
+    return entry, ref
+
+
+def _rescue_engine(entry):
+    from mini_parallel_tpu_torch.io import fasta
+
+    p = entry.p
+    return vp.VariantPrepEngine(
+        fasta.read_fasta(entry.inputs.reference), entry.cfg,
+        min_depth=p["min_depth"], alt_fraction=p["alt_fraction"],
+        gapped=True, rescue=True, rescue_min_frac=p["rescue_min_frac"],
+        gap_model=p["gap_model"], device=CPU)
+
+
+def test_rescue_counts_its_rows_and_rescued_reads(isolate, recorder):
+    """Each pass over the reads (the pileup's and the genotyper's) sweeps
+    both strands of every read the plain seed mapper misses and rescues
+    the reads the plain sweep rescues; ``variant.rescue`` runs inside each
+    chunk's step."""
+    entry, ref = isolate
+    eng = _rescue_engine(entry)
+    recorder.start()
+    res = eng.genotype_candidates(entry.files, eng.process_file(entry.files))
+    rec = recorder.stop()
+    assert any(c.gt for c in res.candidates)
+    missed = int((~ref.seed_mapped).sum())
+    assert missed > 0 and ref.rescued().size > 0
+    assert rec.counters["variant.rescue.rows"] == 2 * 2 * missed
+    assert rec.counters["variant.rescue.rescued"] == 2 * ref.rescued().size
+    by_id = {s.id: s for s in rec.spans}
+    parents = [by_id[s.parent].name for s in rec.spans
+               if s.name == "variant.rescue"]
+    chunks = sum(-(-s.shape[0] // entry.cfg.chunk_size_reads)
+                 for s in entry.inputs.seqs)
+    assert sorted(parents) == (["genotype.map"] * chunks
+                               + ["variant.step"] * chunks)
+
+
+def test_the_sam_pass_records_its_spans(isolate, recorder, tmp_path):
+    """``process_file(sam_out=...)`` records the first pass's spans: each
+    chunk's step, its copies to the host and its SAM write inside
+    ``variant.chunk`` (with the chunk's id), inside ``variant.pass1``."""
+    entry, ref = isolate
+    eng = _rescue_engine(entry)
+    recorder.start()
+    res = eng.process_file(entry.files, sam_out=str(tmp_path / "a.sam"))
+    rec = recorder.stop()
+    assert res.mapped_reads > 0
+    by_id = {s.id: s for s in rec.spans}
+    chunks = sum(-(-s.shape[0] // entry.cfg.chunk_size_reads)
+                 for s in entry.inputs.seqs)
+    for name in ("variant.prep", "variant.sam.step", "variant.sam.sync",
+                 "variant.sam.write"):
+        mine = [s for s in rec.spans if s.name == name]
+        assert sorted(s.chunk for s in mine) == list(range(chunks))
+        assert {by_id[s.parent].name for s in mine} == {"variant.chunk"}
+    steps = [s for s in rec.spans if s.name == "variant.chunk"]
+    assert sorted(s.chunk for s in steps) == list(range(chunks))
+    assert {by_id[s.parent].name for s in steps} == {"variant.pass1"}
+    assert {by_id[s.parent].name for s in rec.spans
+            if s.name == "variant.rescue"} == {"variant.sam.step"}
+    assert rec.counters["variant.rescue.rescued"] == ref.rescued().size
+
+
+def test_rescue_counters_cost_nothing_unrecorded(isolate, monkeypatch,
+                                                recorder):
+    """With the recorder off the rescue's counters are not computed (no
+    device sync is added); on, they are, once a chunk."""
+    entry, _ = isolate
+    calls = []
+    inner = vp._count_rescue
+    monkeypatch.setattr(vp, "_count_rescue",
+                        lambda *a: calls.append(1) or inner(*a))
+    eng = _rescue_engine(entry)
+    eng.process_file(entry.files)
+    assert calls == []
+    recorder.start()
+    eng.process_file(entry.files)
+    recorder.stop()
+    assert len(calls) == sum(-(-s.shape[0] // entry.cfg.chunk_size_reads)
+                             for s in entry.inputs.seqs)
+
+
 def test_threads_record_without_losing_a_span_or_a_count(recorder):
     """More threads than cores open nested spans and count at once, with a
     short switch interval: every span and count is kept, and each span's
